@@ -5,17 +5,32 @@
 
 Phases, one result line each; any failure raises and exits non-zero:
   1. device: the card's name and nvidia-smi's name and power limit;
-  2. build kernel K1 (``csrc/affinity.cu``) from the sources in the checkout;
+  2. build kernel K1 (``csrc/affinity.cu``) from the sources in the checkout
+     (the other kernels' ``nvcc`` runs at the same time);
   3. K1 against its plain PyTorch version on the card at main-path shapes
      (B=8, K=20000, D=96), with keypoints in no box, invalid detections and
      duplicate centers (exact ties); kernel and plain times (CUDA events);
   4. decode of a synthetic two-square scene on the card (through K1) against
      the same decode on the CPU (plain grouping);
-  5. the slice: an EfficientSeg-B3 ``Predictor`` in bf16 at 512x1024 (frames
-     of a 1024x2048 image at scale 2), seeded untrained weights, default
-     decode, answering 3 requests at batch 1 and 3 at batch 8.
+  5. the serving slice: an EfficientSeg-B3 ``Predictor`` in bf16 at 512x1024
+     (frames of a 1024x2048 image at scale 2), seeded untrained weights,
+     default decode, answering 3 requests at batch 1 and 3 at batch 8;
+  6. build kernels K2-K5 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``);
+  7. K2, K5, K3 and K4 against their plain twins at the train cell's shapes
+     (B=8, M=96, P=1024, 512x1024; bench.py's 16 octagons per image plus a
+     border-clipped instance and an image with no labels): K2 bitwise, K5
+     and K3 to rtol 1e-5, K4 to 1e-4 of max|g| (its autograd twin at B=2);
+     kernel and twin times (CUDA events) beside each kernel's bound;
+  8. the training slice: a ``Trainer`` with EfficientSeg-B3, bf16 compute and
+     float32 master weights, 512x1024, batch 8, M=96, P=1024, Adam 2e-5,
+     seeded untrained weights: 1 warm-up step, then 5 timed steps through
+     K2-K5 with finite losses;
+  9. one float32 step of EfficientSeg-B0 at 128x512, batch 2, on the card
+     (kernels) against the same step on the CPU (twins).
 
-The lines before the last are a JSON record of the kernels and the
+Each path's launch counts are set to 0 just before it runs and read just
+after: K1's from the serving slice, K2-K5's from the training slice. The
+lines before the last are a JSON record of the kernels and the
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises before
 printing anything.
@@ -31,12 +46,20 @@ import numpy as np
 import torch
 
 from instance_segmentation_torch.device import require_cuda
-from instance_segmentation_torch.kernels import affinity, build
+from instance_segmentation_torch.kernels import ae_terms, affinity, build, rasterize
+from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
+from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.serve import Predictor
+from instance_segmentation_torch.training.synthetic import bench_train_batch
+from instance_segmentation_torch.training.train_step import Trainer
 
 AFFINITY_SHAPE = (8, 20000, 96)          # B, K (kp_th), D (max_dets)
+TRAIN_SHAPE = (8, 96, 1024, 512, 1024)   # B, M, P, H, W: bench.py's train cell
+HBM_BYTES_PER_MS = 3.35e9                # H100 SXM: 3.35 TB/s
+F32_OPS_PER_MS = 67e9                    # H100 SXM: 67 TFLOP/s float32 (no tensor cores)
+KERNELS = ("affinity", "rasterize", "ae_terms")
 SCENE_SQUARES = (((20, 30), (60, 70), 0), ((80, 100), (110, 150), 1))
 SCENE_DECODE = DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512)
 
@@ -115,6 +138,13 @@ def cuda_median_ms(fn, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least time in ms, "bytes" or "operations"): the bytes over the card's
+    memory rate against the float32 operations over its float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / F32_OPS_PER_MS
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -159,10 +189,16 @@ def phase_affinity(dev: torch.device) -> dict:
           f"outside near ties), keypoints in no box {in_no_box}, best max|err| {max_abs:.3g}"
           f" (rtol 1e-6); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)",
           flush=True)
+    b, k, d = AFFINITY_SHAPE
+    # reads row/col, embedding and sigma per keypoint and the center table,
+    # writes assign and best; per (keypoint, center): 2 sub, 4 mul, 1 add,
+    # 1 neg, 1 exp, 4 compares and the containment product, 14 operations
+    bound_ms, bound_by = bound(b * k * 6 * 4 + b * d * (6 * 4 + 1) + b * k * 8, b * k * d * 14)
     return {"name": "affinity_assign", "route": "cuda",
             "source": "instance_segmentation_torch/csrc/affinity.cu",
             "replaces": "instance_segmentation_tpu/ops/pallas_kernels.py:77",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase_decode(dev: torch.device) -> None:
@@ -241,6 +277,233 @@ def phase_slice(dev: torch.device, smi: str) -> int:
     return launches
 
 
+def visited_tiles(tab: torch.Tensor, cntp: torch.Tensor, h: int, w: int):
+    """(tile-instance pairs K3/K4 visit, tiles holding samples): the kernels'
+    skip rule, for their byte and operation counts."""
+    nh, nw = ae_terms.num_tiles(h, w)
+    r0 = (torch.arange(nh, device=tab.device) * ae_terms.TILE_H).view(nh, 1).float()
+    c0 = (torch.arange(nw, device=tab.device) * ae_terms.TILE_W).view(1, nw).float()
+    t = tab[..., None, None]
+    win = ((t[:, :, ae_terms.VALID] > 0) & (t[:, :, ae_terms.LT0] < r0 + ae_terms.TILE_H)
+           & (t[:, :, ae_terms.RB0] > r0) & (t[:, :, ae_terms.LT1] < c0 + ae_terms.TILE_W)
+           & (t[:, :, ae_terms.RB1] > c0))
+    hit = win.flatten(2) | (cntp > 0)
+    return int(hit.sum()), int((cntp > 0).any(dim=1).sum())
+
+
+def phase_train_kernels(dev: torch.device) -> list:
+    """K2, K5, K3, K4 against their twins at the train cell's shapes; returns
+    their records (launches filled in by the training slice)."""
+    b, m, p, h, w = TRAIN_SHAPE
+    _, labels = bench_train_batch(b, m, h, w, edge_cases=True)
+    t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p)
+    live = int(t.pt_valid.any(dim=2).sum())
+    records = []
+
+    # K2
+    got = rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w)
+    want = rasterize.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w)
+    torch.cuda.synchronize()
+    err = 0
+    for name, g, x in zip(("cnt", "r2", "union"), got, want):
+        check(g.dtype == x.dtype and g.shape == x.shape, f"K2 {name} dtype/shape")
+        g32 = rasterize.u16_to_i32(g) if g.dtype == torch.uint16 else g.to(torch.int32)
+        x32 = rasterize.u16_to_i32(x) if x.dtype == torch.uint16 else x.to(torch.int32)
+        err = max(err, int((g32 - x32).abs().max()))
+    check(err == 0, f"K2 differs from its twin by {err}")
+    ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
+    plain_ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w))
+    # reads the point list once, writes cnt (2 B), r2 (1 B) and the union;
+    # its work is integer counting and min, no float32 operations
+    bound_ms, bound_by = bound(b * m * p * 9 + b * m * h * w * 3 + b * h * w, 0)
+    print(f"[7] K2 rasterize_cnt_r2 B,M,P,H,W={TRAIN_SHAPE} ({live} of {b * m} slots live, "
+          f"{int(t.pt_valid.sum())} samples): cnt, r2, union bitwise equal to the twin; "
+          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    records.append({"name": "rasterize_cnt_r2", "route": "cuda",
+                    "source": "instance_segmentation_torch/csrc/rasterize.cu",
+                    "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:222",
+                    "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    # K5
+    nk = rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w)
+    npl = rasterize.rasterize_nmap_plain(t.points, t.pt_valid, t.normals, h, w)
+    torch.cuda.synchronize()
+    err = max(float((a - c).abs().max()) for a, c in zip(nk, npl))
+    check(all(torch.allclose(a, c, rtol=1e-5, atol=1e-5) for a, c in zip(nk, npl)),
+          f"K5 differs from its twin by {err}")
+    ms = cuda_median_ms(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w))
+    plain_ms = cuda_median_ms(lambda: rasterize.rasterize_nmap_plain(t.points, t.pt_valid,
+                                                                     t.normals, h, w))
+    # reads points, pt_valid and normals once, writes two f32 planes; one
+    # add per channel and valid sample
+    bound_ms, bound_by = bound(b * m * p * 17 + 2 * b * h * w * 4, 2 * int(t.pt_valid.sum()))
+    print(f"[7] K5 rasterize_nmap: max|kernel - twin| {err:.3g} (rtol 1e-5, atol 1e-5); "
+          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    records.append({"name": "rasterize_nmap", "route": "cuda",
+                    "source": "instance_segmentation_torch/csrc/rasterize.cu",
+                    "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:163",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    # K3
+    cnt, r2, _ = got
+    xym = losses.coordinate_grid(h, w, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    planes = torch.randn((4, b, h, w), generator=gen, device=dev)
+    fields = [(torch.tanh(planes[0]) + xym[..., 0]).contiguous(),
+              (torch.tanh(planes[1]) + xym[..., 1]).contiguous(),
+              torch.exp(planes[2]), torch.exp(planes[3])]
+    tab = losses.ae_table(t, xym, h, w)
+    lut = ae_terms.neg4_lut(losses._NEG4_TABLE, dev)
+    cntp = ae_terms.tile_presence(t.points, t.pt_valid, h, w)
+    rest = (r2, cnt, tab, lut, cntp)
+    k3 = ae_terms.ae_terms_fwd(*fields, *rest)
+    with torch.no_grad():
+        p3 = ae_terms.ae_terms_plain(*fields, *rest)
+    torch.cuda.synchronize()
+    err = max(float((a - c).abs().max()) for a, c in zip(k3, p3))
+    for name, a, c in zip(("pos", "neg", "npos", "pull"), k3, p3):
+        check(torch.allclose(a, c, rtol=1e-5, atol=0.0),
+              f"K3 {name} differs from its twin by {float((a - c).abs().max())}")
+    ms = cuda_median_ms(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
+    with torch.no_grad():
+        plain_ms = cuda_median_ms(lambda: ae_terms.ae_terms_plain(*fields, *rest))
+    pairs, any_tiles = visited_tiles(tab, cntp, h, w)
+    tile_px = ae_terms.TILE_H * ae_terms.TILE_W
+    n_valid = int(t.inst_valid.sum()) // b
+    # reads the 4 fields once and 3 B per pixel of each visited (tile,
+    # instance) slab; per visited pixel ~21 operations (affinity 9, clip 2,
+    # neg term 6, pull 4), per pixel of a sample tile and valid center 10
+    # (dmax)
+    table_bytes = b * m * 8 * 4 + 256 * 4 + cntp.numel()
+    bound_ms, bound_by = bound(4 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
+                               pairs * tile_px * 21 + any_tiles * tile_px * n_valid * 10)
+    print(f"[7] K3 ae_terms forward: {pairs} (tile, instance) pairs visited of "
+          f"{b * m * cntp.shape[2]}, {any_tiles} sample tiles; max|kernel - twin| {err:.3g} "
+          f"(rtol 1e-5); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
+    records.append({"name": "ae_terms_fwd", "route": "cuda",
+                    "source": "instance_segmentation_torch/csrc/ae_terms.cu",
+                    "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:325",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    # K4: the kernel on images 0 (border-clipped instance) and b-1 (no labels)
+    # against the twin's autograd there; through the autograd.Function too
+    sub = torch.tensor([0, b - 1], device=dev)
+    fields2 = [f[sub].contiguous().requires_grad_() for f in fields]
+    rest2 = (r2[sub].contiguous(), cnt.view(torch.int16)[sub].view(torch.uint16),
+             tab[sub].contiguous(), lut,
+             cntp[sub].contiguous())
+    wts = torch.randn((3, b, m), generator=gen, device=dev)
+    k4 = ae_terms.ae_terms_bwd(*(f.detach() for f in fields2), *rest2, *wts[:, sub])
+    pos, neg, _, pull = ae_terms.ae_terms_plain(*fields2, *rest2)
+    objective = (wts[0, sub] * pos + wts[1, sub] * neg + wts[2, sub] * pull).sum()
+    p4 = torch.autograd.grad(objective, fields2, retain_graph=True)
+    pos, neg, _, pull = ae_terms.ae_terms(*fields2, *rest2)
+    f4 = torch.autograd.grad((wts[0, sub] * pos + wts[1, sub] * neg + wts[2, sub] * pull).sum(),
+                             fields2)
+    torch.cuda.synchronize()
+    err = max(float((a - c).abs().max()) for a, c in zip(k4, p4))
+    for name, a, c, f in zip(("ey", "ex", "sy", "sx"), k4, p4, f4):
+        check(float((a - c).abs().max()) <= 1e-4 * float(c.abs().max()),
+              f"K4 d{name} differs from its twin by {float((a - c).abs().max())}")
+        check(torch.equal(a, f), f"K4 d{name} through the autograd.Function differs")
+    full = [f.detach() for f in fields]
+    ms = cuda_median_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *wts))
+    plain_ms = cuda_median_ms(lambda: torch.autograd.grad(objective, fields2, retain_graph=True))
+    # reads the 4 fields, writes 4 gradient planes, 3 B per visited slab
+    # pixel; per visited pixel ~51 operations, per sample-tile pixel 10 per
+    # valid center (argmax) and 21 for the argmax center's term
+    bound_ms, bound_by = bound(8 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
+                               pairs * tile_px * 51 + any_tiles * tile_px * (n_valid * 10 + 21))
+    print(f"[7] K4 ae_terms backward (images 0 and {b - 1}): max|kernel - twin autograd| "
+          f"{err:.3g} (<= 1e-4 max|g|), autograd.Function equal; kernel {ms:.4f} ms at B={b}, "
+          f"twin backward {plain_ms:.4f} ms at B=2, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    records.append({"name": "ae_terms_bwd", "route": "cuda",
+                    "source": "instance_segmentation_torch/csrc/ae_terms.cu",
+                    "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:366",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "plain_batch": 2,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return records
+
+
+TRAIN_KERNELS = {"rasterize_cnt_r2": rasterize, "rasterize_nmap": rasterize,
+                 "ae_terms_fwd": ae_terms, "ae_terms_bwd": ae_terms}
+
+
+def phase_train_slice(dev: torch.device, smi: str) -> dict:
+    """B3 512x1024 bf16 training, batch 8: 1 warm-up step, 5 timed steps.
+    Returns the K2-K5 launch counts of the timed steps."""
+    b, m, p, h, w = TRAIN_SHAPE
+    cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
+    trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=p, device=dev)
+    frames, labels = bench_train_batch(b, m, h, w)
+    trainer.step(frames, *labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, module in TRAIN_KERNELS.items():
+        module.launches[name] = 0
+    times, stats = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        s = trainer.step(frames, *labels)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        stats.append({k: float(v) for k, v in s.items()})
+    counts = {name: module.launches[name] for name, module in TRAIN_KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, s in enumerate(stats):
+        check(all(np.isfinite(v) for v in s.values()), f"step {i}: a loss is not finite: {s}")
+        print(f"[8] step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in s.items()), flush=True)
+    for name, n in counts.items():
+        check(n == len(times), f"{name} launched {n} times in {len(times)} steps")
+    med = float(np.median(times))
+    print(f"[8] B3 512x1024 bf16 train b{b} (M={m}, P={p}, Adam 2e-5): ms/step "
+          f"{[round(t, 3) for t in times]} (median {med:.3f}), img/s {1e3 * b / med:.2f}; "
+          f"peak device memory {peak} B ({peak / 2**30:.2f} GiB); launches {counts}; [{smi}]",
+          flush=True)
+    return counts
+
+
+def phase_train_parity(dev: torch.device) -> None:
+    """One float32 B0 step at 128x512, batch 2: card (kernels) against CPU
+    (twins), same seeded weights and inputs."""
+    h, w, m, p = 128, 512, 8, 64
+    cfg = EfficientSegConfig(num_classes=8, compound_coef=0, drop_connect_rate=0.0)
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    polys = np.zeros((2, m, 8, 2), np.float32)
+    ang = np.linspace(0, 2 * np.pi, 9)[:-1]
+    for i in range(5):
+        cy, cx = rng.uniform(25, h - 25), rng.uniform(60, w - 60)
+        polys[0, i] = np.stack([cy + 15 * np.sin(ang), cx + 30 * np.cos(ang)], -1)
+    polys[0, 5:] = polys[0, 0, 0]
+    polys[1] = polys[0, ::-1]
+    cls_ids = np.where(np.arange(m) < 5, np.arange(m) % 8, -1)[None].repeat(2, 0)
+    cls_ids[1] = cls_ids[0, ::-1]
+    labels = (polys, np.where(cls_ids >= 0, 8, 0), cls_ids)
+    grads, stats = [], []
+    for device in (dev, torch.device("cpu")):
+        trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=p,
+                          device=device)
+        stats.append({k: float(v) for k, v in trainer.compute_grads(frames, *labels).items()})
+        grads.append({k: q.grad.cpu() for k, q in trainer.model.named_parameters()})
+    for k in stats[1]:
+        check(np.isclose(stats[0][k], stats[1][k], rtol=1e-4, atol=0.0),
+              f"{k}: card {stats[0][k]} vs cpu {stats[1][k]}")
+    top = max(float(g.abs().max()) for g in grads[1].values())
+    worst = max(float((grads[0][k] - g).abs().max()) for k, g in grads[1].items())
+    check(worst <= 1e-3 * top, f"gradients differ by {worst} (max|g| {top})")
+    print(f"[9] B0 128x512 f32 step, card (kernels) vs cpu (twins): stats rtol 1e-4 "
+          f"({', '.join(f'{k} {v:.6g}' for k, v in stats[0].items())}); gradients max|diff| "
+          f"{worst:.3g} <= 1e-3 x max|g| {top:.3g}", flush=True)
+
+
 def main() -> None:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -250,17 +513,28 @@ def main() -> None:
     print(f"[1] device {name} (count {torch.cuda.device_count()}); nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
-    lib = build.build("affinity")
+    built = build.build_all(KERNELS)
+    lib, seconds = built["affinity"]
     build.load("affinity")
     print(f"[2] built K1 {lib.relative_to(build.BUILD_DIR.parents[1])} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{seconds:.2f} s", flush=True)
 
     record = phase_affinity(dev)
     phase_decode(dev)
     record["launches"] = phase_slice(dev, smi)
 
-    print(json.dumps({"kernels": [record]}))
+    for kernel in KERNELS[1:]:
+        build.load(kernel)
+    print("[6] built K2-K5 " + ", ".join(
+        f"{built[n][0].relative_to(build.BUILD_DIR.parents[1])} in {built[n][1]:.2f} s"
+        for n in KERNELS[1:]) + " (all nvcc runs started together)", flush=True)
+    records = phase_train_kernels(dev)
+    counts = phase_train_slice(dev, smi)
+    for r in records:
+        r["launches"] = counts[r["name"]]
+    phase_train_parity(dev)
+
+    print(json.dumps({"kernels": [record] + records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (listed in ``.gitignore``), then loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited kernel rebuilds and an unchanged one is
 reused. Nothing is built at import time: the first ``load`` of a kernel in a
-process builds it if needed.
+process builds it if needed; ``build_all`` builds several at once, one
+``nvcc`` process per source, all started together.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -42,25 +45,54 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.is_file():
-        return out
+def _start(name: str) -> Tuple[subprocess.Popen, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), tmp
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: str) -> Path:
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        output, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {name}.cu ({proc.returncode}):\n{output}")
+        out = library_path(name)
         os.replace(tmp, out)
+        return out
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
+    """Compile every ``csrc/<name>.cu`` not yet built, all ``nvcc`` processes
+    running at once. Returns {name: (library, seconds until it was ready)}."""
+    t0 = time.perf_counter()
+    done, running = {}, {}
+    try:
+        for name in names:
+            if library_path(name).is_file():
+                done[name] = (library_path(name), 0.0)
+            else:
+                running[name] = _start(name)
+        for name, (proc, tmp) in running.items():
+            done[name] = (_finish(name, proc, tmp), time.perf_counter() - t0)
+    finally:
+        for name, (proc, tmp) in running.items():   # after a failure: stop the rest
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    return build_all([name])[name][0]
 
 
 @functools.cache

@@ -7,20 +7,23 @@ layout only. Attribute names follow the reference torch state dict
 ``state_dict()`` onto the flax tree.
 
 Returns the five snapshots [P1..P5]: the activation just before each
-stride-2 block, and the final block output.
+stride-2 block, and the final block output. In training, block ``idx`` of
+``total`` applies drop-connect at rate ``drop_connect_rate * idx / total`` on
+its identity skip, drawn from the backbone's ``generator`` (torch's default
+generator when None).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from instance_segmentation_torch.models.layers import (
-    BatchNorm, Conv2dSame, depthwise_conv, swish,
+    BatchNorm, Conv2dSame, depthwise_conv, drop_connect, swish,
 )
 
 
@@ -104,11 +107,12 @@ def flat_blocks(variant: int) -> List[BlockArgs]:
 
 class MBConv(nn.Module):
     """Mobile inverted bottleneck: expand -> depthwise -> SE -> project, with
-    the identity skip on same-shape blocks (drop-connect is training only)."""
+    the identity skip on same-shape blocks (drop-connect on it in training)."""
 
-    def __init__(self, a: BlockArgs):
+    def __init__(self, a: BlockArgs, drop_rate: float = 0.0):
         super().__init__()
         self.args = a
+        self.drop_rate = drop_rate
         expanded = a.input_filters * a.expand_ratio
         if a.expand_ratio != 1:
             self._expand_conv = Conv2dSame(a.input_filters, expanded, 1, bias=False)
@@ -123,7 +127,8 @@ class MBConv(nn.Module):
         self._project_conv = Conv2dSame(expanded, a.output_filters, 1, bias=False)
         self._bn2 = BatchNorm(a.output_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         a = self.args
         inputs = x
         if a.expand_ratio != 1:
@@ -135,6 +140,8 @@ class MBConv(nn.Module):
             x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
+            if self.training and self.drop_rate > 0.0:
+                x = drop_connect(x, self.drop_rate, generator)
             x = x + inputs
         return x
 
@@ -142,12 +149,15 @@ class MBConv(nn.Module):
 class EfficientNetFeatures(nn.Module):
     """Backbone producing the five pyramid snapshots [P1..P5]."""
 
-    def __init__(self, variant: int = 0):
+    def __init__(self, variant: int = 0, drop_connect_rate: float = 0.2):
         super().__init__()
         stem = stem_filters(variant)
         self._conv_stem = Conv2dSame(3, stem, 3, stride=2, bias=False)
         self._bn0 = BatchNorm(stem)
-        self._blocks = nn.ModuleList(MBConv(b) for b in flat_blocks(variant))
+        flat = flat_blocks(variant)
+        self._blocks = nn.ModuleList(MBConv(b, drop_connect_rate * idx / len(flat))
+                                     for idx, b in enumerate(flat))
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = swish(self._bn0(self._conv_stem(x)))
@@ -155,6 +165,6 @@ class EfficientNetFeatures(nn.Module):
         for block in self._blocks:
             if block.args.stride == 2:
                 features.append(x)
-            x = block(x)
+            x = block(x, self.generator)
         features.append(x)
         return features

@@ -1,10 +1,10 @@
 """EfficientSeg: EfficientNet backbone -> BiFPN (P3..P7) -> anchor box/class
 heads, plus the U-Net kp/ae/tan decoder over [input, P1..P5].
 
-Counterpart of ``instance_segmentation_tpu/models/efficientseg.py`` in eval
-mode with the standard head layout (``apply(train=False,
-packed_heads=False)``). Input: NHWC uint8 (or float) images; normalization
-happens inside the model. Outputs, in the reference layouts:
+Counterpart of ``instance_segmentation_tpu/models/efficientseg.py`` with the
+standard layout (``apply(train=..., packed_heads=False)``, no space-to-depth).
+Input: NHWC uint8 (or float) images; normalization happens inside the model.
+Outputs in eval mode, in the reference layouts:
 
     kp:  (B, H, W, 1) float32 logits
     ae:  (B, H, W, 4) float32 (2 offsets + 2 log-sigmas)
@@ -12,13 +12,18 @@ happens inside the model. Outputs, in the reference layouts:
     regression:     (B, A, 4) float32 (dy, dx, dh, dw)
     classification: (B, A, C) float32 sigmoid scores
 
+In training mode (``.train()``) the dense heads come out in the reference's
+``planar_heads`` layout: kp as one [B, H, W] float32 plane, ae as a tuple of
+four and tan as a tuple of two such planes. They are channel views of the
+NCHW head outputs, not copies.
+
 Inside, tensors are NCHW in ``compute_dtype``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,6 +57,7 @@ class EfficientSegConfig:
     compute_dtype: torch.dtype = torch.float32
     mean: Tuple[float, ...] = DEFAULT_MEAN
     std: Tuple[float, ...] = DEFAULT_STD
+    drop_connect_rate: float = 0.2      # backbone stochastic depth, training only
 
     def __post_init__(self):
         if not 0 <= self.compound_coef <= 7:
@@ -73,11 +79,13 @@ class EfficientSegConfig:
 
 class EfficientSeg(nn.Module):
     """Built on the CPU in float32 with default (untrained) values; conv
-    weights are then held in ``cfg.compute_dtype``. Fill it with
+    weights are then held in ``param_dtype`` (default ``cfg.compute_dtype``,
+    as serving wants; training passes float32 for master weights) and cast
+    to ``cfg.compute_dtype`` per call. Fill it with
     ``weights.load_flax_variables`` or ``weights.init_random`` and move it
-    with ``.to(device)``."""
+    with ``.to(device)``. It starts in eval mode."""
 
-    def __init__(self, cfg: EfficientSegConfig):
+    def __init__(self, cfg: EfficientSegConfig, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         coef = cfg.compound_coef
@@ -85,7 +93,8 @@ class EfficientSeg(nn.Module):
         chans = feature_channels(variant)
         fpn_ch = FPN_FILTERS[coef]
         levels = PYRAMID_LEVELS[coef]
-        self.backbone_net = nn.ModuleDict({"model": EfficientNetFeatures(variant)})
+        self.backbone_net = nn.ModuleDict(
+            {"model": EfficientNetFeatures(variant, cfg.drop_connect_rate)})
         self.bifpn = BiFPN(fpn_ch, chans[2:5], FPN_REPEATS[coef], attention=coef < 6)
         self.regressor = Regressor(fpn_ch, cfg.num_anchors, BOX_CLASS_REPEATS[coef],
                                    levels)
@@ -96,7 +105,7 @@ class EfficientSeg(nn.Module):
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.std) * 255.0,
                              persistent=False)
-        cast_convs(self, cfg.compute_dtype)
+        cast_convs(self, param_dtype or cfg.compute_dtype)
         self.eval()
 
     def forward(self, images: torch.Tensor):
@@ -106,5 +115,9 @@ class EfficientSeg(nn.Module):
         feats = self.bifpn(blocks[2:5])
         regression = self.regressor(feats).float()
         classification = self.classifier(feats)
-        kp, ae, tan = (t.permute(0, 2, 3, 1) for t in self.kp_header(x, blocks))
+        heads = self.kp_header(x, blocks)
+        if self.training:
+            kp, ae, tan = (tuple(t.unbind(1)) for t in heads)
+            return kp[0], ae, tan, regression, classification
+        kp, ae, tan = (t.permute(0, 2, 3, 1) for t in heads)
         return kp, ae, tan, regression, classification

@@ -1,31 +1,38 @@
-"""Shared layers: TF-SAME convs, eval-mode batch norm, separable conv (NCHW).
+"""Shared layers: TF-SAME convs, batch norm, separable conv, drop-connect (NCHW).
 
 Counterpart of ``instance_segmentation_tpu/models/layers.py``. The reference
 gets TF-SAME padding from XLA's ``padding="SAME"``; torch's ``padding="same"``
 refuses stride 2, so the pads are computed here, asymmetric (the extra pixel
 goes bottom/right) exactly as XLA does.
 
-Dtype policy, as in the reference: conv weights and biases are held in the
-model's compute dtype (the reference casts its f32 params per call, which
-rounds the same way), batch-norm parameters and statistics stay float32,
-and the per-channel ``scale``/``shift`` are formed in float32 and cast to
-the activation dtype before they are applied.
+Dtype policy, as in the reference: every conv casts its weight and bias to
+the activation (compute) dtype per call. Serving holds them in the compute
+dtype already (``cast_convs``), so the cast is free; training holds float32
+master weights, as flax does (``param_dtype=f32``, ``dtype=bf16``), and the
+gradient flows back through the cast. Batch-norm parameters and statistics
+stay float32, and the per-channel ``scale``/``shift`` are formed in float32
+and cast to the activation dtype before they are applied.
 
-The port is inference only for now: batch norm uses its running statistics.
+Batch norm follows ``nn.Module.train()``/``.eval()``: batch statistics (the
+biased variance) and a flax-style running-average update in training, the
+running statistics in eval.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Detector-side BN eps (reference layers.py BN_EPS_DET) and U-Net BN eps
-# (torch defaults, reference layers.py BN_EPS_UNET).
+# Detector-side BN constants and U-Net BN constants (reference layers.py
+# BN_MOMENTUM_DET/BN_EPS_DET and BN_MOMENTUM_UNET/BN_EPS_UNET). Momentum is
+# the flax convention: running = m * running + (1 - m) * batch.
+BN_MOMENTUM_DET = 0.99
 BN_EPS_DET = 1e-3
+BN_MOMENTUM_UNET = 0.9
 BN_EPS_UNET = 1e-5
 
 
@@ -35,6 +42,26 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _cast(t, dtype: torch.dtype):
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias are cast to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose weight and bias are cast to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
 class Conv2dSame(nn.Module):
     """2D conv with TF-SAME padding. The inner ``conv`` carries the reference
     torch state-dict names (``<name>.conv.weight``)."""
@@ -42,18 +69,19 @@ class Conv2dSame(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, bias: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              padding=0, groups=groups, bias=bias)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
+                           padding=0, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         k, s = conv.kernel_size[0], conv.stride[0]
         top, bottom = same_pads(x.shape[-2], k, s)
         left, right = same_pads(x.shape[-1], k, s)
-        if top == bottom and left == right:
-            return F.conv2d(x, conv.weight, conv.bias, s, (top, left), 1,
-                            conv.groups)
-        return conv(F.pad(x, (left, right, top, bottom)))
+        if top != bottom or left != right:
+            x = F.pad(x, (left, right, top, bottom))
+            top = left = 0
+        return F.conv2d(x, conv.weight.to(x.dtype), _cast(conv.bias, x.dtype), s,
+                        (top, left), 1, conv.groups)
 
 
 def depthwise_conv(channels: int, kernel_size: int, stride: int = 1) -> Conv2dSame:
@@ -84,20 +112,41 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm: ``x * scale_eff + shift`` with the per-channel
-    coefficients formed in float32 and cast to the activation dtype."""
+    """Batch norm as ``x * scale_eff + shift``, the per-channel coefficients
+    formed in float32 and cast to the activation dtype.
 
-    def __init__(self, channels: int, eps: float = BN_EPS_DET):
+    Training (reference ``_bn_train_math`` and ``_FastBN``): mean and
+    ``E[x^2]`` over N, H, W accumulated in float32, the biased variance
+    ``max(E[x^2] - mean^2, 0)``, and the running statistics updated in place
+    as ``m * running + (1 - m) * batch``. ``torch.nn.BatchNorm2d`` keeps the
+    unbiased variance and the other momentum convention, so it is not used.
+    Autograd gives the backward. Like ``EfficientSeg``, it starts in eval
+    mode: training is asked for with ``.train()``."""
+
+    def __init__(self, channels: int, eps: float = BN_EPS_DET,
+                 momentum: float = BN_MOMENTUM_DET):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
         return (x * scale.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])
 
@@ -120,6 +169,21 @@ class SeparableConv(nn.Module):
         if self.activation:
             x = swish(x)
         return x
+
+
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Per-sample stochastic depth (reference ``layers.drop_connect``): a mask
+    ``floor(keep + U)`` per sample, U uniform from ``generator`` (drawn on
+    the generator's device; torch's default generator of ``x``'s device when
+    None), then ``x / keep * mask``."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    device = x.device if generator is None else generator.device
+    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=device)
+    mask = torch.floor(keep + u).to(device=x.device, dtype=x.dtype)
+    return (x / keep) * mask
 
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> None:

@@ -8,8 +8,9 @@ then 1x1 heads cast to float32:
 
     kp: 1 channel, ae: 4 channels, tan: 2 channels.
 
-Batch norm here uses the torch-default eps 1e-5. Attribute names follow the
-reference torch state dict (``up_conv1``, ``double_conv1.0`` ...).
+Batch norm here uses the torch-default eps 1e-5 and flax momentum 0.9.
+Attribute names follow the reference torch state dict (``up_conv1``,
+``double_conv1.0`` ...).
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from instance_segmentation_torch.models.layers import BN_EPS_UNET, BatchNorm
+from instance_segmentation_torch.models.layers import (
+    BN_EPS_UNET, BN_MOMENTUM_UNET, BatchNorm, Conv2d, ConvTranspose2d,
+)
 
 HEADS: Tuple[Tuple[str, int], ...] = (("kp", 1), ("ae", 4), ("tan", 2))
 
@@ -27,10 +30,10 @@ HEADS: Tuple[Tuple[str, int], ...] = (("kp", 1), ("ae", 4), ("tan", 2))
 def _double_conv(in_channels: int, channels: int) -> nn.Sequential:
     """Two (3x3 conv, BN, ReLU); keys ``.0/.3`` conv and ``.1/.4`` BN."""
     return nn.Sequential(
-        nn.Conv2d(in_channels, channels, 3, padding=1),
-        BatchNorm(channels, eps=BN_EPS_UNET), nn.ReLU(),
-        nn.Conv2d(channels, channels, 3, padding=1),
-        BatchNorm(channels, eps=BN_EPS_UNET), nn.ReLU())
+        Conv2d(in_channels, channels, 3, padding=1),
+        BatchNorm(channels, eps=BN_EPS_UNET, momentum=BN_MOMENTUM_UNET), nn.ReLU(),
+        Conv2d(channels, channels, 3, padding=1),
+        BatchNorm(channels, eps=BN_EPS_UNET, momentum=BN_MOMENTUM_UNET), nn.ReLU())
 
 
 class UNetDecoder(nn.Module):
@@ -41,14 +44,14 @@ class UNetDecoder(nn.Module):
         prev = block_channels[-1]
         for i, ch in enumerate(stage_channels, start=1):
             skip = block_channels[-(i + 1)]
-            setattr(self, f"up_conv{i}", nn.ConvTranspose2d(prev, ch, 2, stride=2))
+            setattr(self, f"up_conv{i}", ConvTranspose2d(prev, ch, 2, stride=2))
             setattr(self, f"double_conv{i}", _double_conv(ch + skip, ch))
             prev = ch
         ic = input_stage_channels
-        self.up_conv_input = nn.ConvTranspose2d(prev, ic, 2, stride=2)
+        self.up_conv_input = ConvTranspose2d(prev, ic, 2, stride=2)
         self.double_conv_input = _double_conv(ic + image_channels, ic)
         for name, ch in HEADS:
-            setattr(self, name, nn.Conv2d(ic, ch, 1))
+            setattr(self, name, Conv2d(ic, ch, 1))
         self.num_stages = len(stage_channels)
 
     def forward(self, image: torch.Tensor, blocks: List[torch.Tensor]

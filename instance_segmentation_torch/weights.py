@@ -1,9 +1,10 @@
-"""Weights for the port: loading the JAX package's flax variables, and a
-seeded random initialisation.
+"""Weights for the port: the JAX package's flax variables in both directions,
+and a seeded random initialisation.
 
 The port's state-dict keys are the reference torch keys, which
 ``tools/convert_torch_weights.convert_state_dict`` maps onto the flax tree;
-``load_flax_variables`` is its inverse. Layouts (flax -> torch):
+``load_flax_variables`` is its inverse and ``export_flax_variables`` brings a
+port-trained model back into the JAX package. Layouts (flax -> torch):
 
   * conv kernels HWIO (kh, kw, I/groups, O) -> OIHW; a depthwise kernel
     (kh, kw, 1, C) becomes (C, 1, kh, kw) by the same transpose;
@@ -70,8 +71,22 @@ def deconv_kernel_from_flax(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(k[::-1, ::-1], (2, 3, 0, 1)))
 
 
+def conv_kernel_to_flax(k: np.ndarray) -> np.ndarray:
+    """OIHW -> HWIO."""
+    return np.ascontiguousarray(np.transpose(k, (2, 3, 1, 0)))
+
+
+def deconv_kernel_to_flax(k: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose2d (I, O, kh, kw) -> flax ConvTranspose (kh, kw, I, O)."""
+    return np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))[::-1, ::-1])
+
+
 def _identity(a: np.ndarray) -> np.ndarray:
     return a
+
+
+_INVERSE = {conv_kernel_from_flax: conv_kernel_to_flax,
+            deconv_kernel_from_flax: deconv_kernel_to_flax, _identity: _identity}
 
 
 def flax_leaf(key: str, module: nn.Module
@@ -110,33 +125,66 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
+def port_tensors_from_flax(model: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax-shaped ``{"params": ..., "batch_stats": ...}`` tree (either
+    collection may be absent; numpy or array leaves) onto the port's
+    state-dict keys, in the port's layouts, as float32 CPU tensors: the
+    variables themselves, or any tree shaped like them, such as JAX
+    gradients. Strict: every flax leaf given must have a port tensor of the
+    same shape. Keys whose flax leaf is absent are left out."""
+    flat = {}
+    for coll in ("params", "batch_stats"):
+        flat.update({(coll,) + p: v for p, v in _flatten(tree.get(coll, {})).items()})
+    modules = dict(model.named_modules())
+    out, used = {}, set()
+    for key, tensor in model.state_dict(keep_vars=True).items():
+        coll, path, transform = flax_leaf(key, modules[key.rpartition(".")[0]])
+        fkey = (coll,) + path
+        if fkey not in flat:
+            continue
+        value = transform(flat[fkey])
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"shape mismatch for {key!r}: port {tuple(tensor.shape)}"
+                             f" vs flax {'/'.join(fkey)} {tuple(value.shape)}")
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        used.add(fkey)
+    unused = sorted("/".join(k) for k in set(flat) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax leaves have no port tensor, "
+                       f"e.g. {unused[:5]}")
+    return out
+
+
 @torch.no_grad()
 def load_flax_variables(model: nn.Module, variables: Mapping) -> int:
     """Fill every parameter and buffer of ``model`` from the JAX package's
     ``{"params", "batch_stats"}`` tree (numpy or array leaves). Strict: every
     flax leaf must be used and every port tensor set, with equal shapes.
     Returns the number of tensors set."""
-    flat = {("params",) + p: v for p, v in _flatten(variables["params"]).items()}
-    flat.update({("batch_stats",) + p: v
-                 for p, v in _flatten(variables.get("batch_stats", {})).items()})
-    modules = dict(model.named_modules())
-    used = set()
+    values = port_tensors_from_flax(model, variables)
     for key, tensor in model.state_dict(keep_vars=True).items():
+        if key not in values:
+            coll, path, _ = flax_leaf(key, dict(model.named_modules())[key.rpartition(".")[0]])
+            raise KeyError(f"flax tree has no {'/'.join((coll,) + path)} for port tensor "
+                           f"{key!r}")
+        tensor.copy_(values[key])
+    return len(values)
+
+
+@torch.no_grad()
+def export_flax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """The inverse of ``load_flax_variables``: the JAX package's
+    ``{"params", "batch_stats"}`` tree of ``model``, float32 numpy leaves, so
+    that a model trained in the port loads into the JAX package."""
+    modules = dict(model.named_modules())
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in model.state_dict().items():
         coll, path, transform = flax_leaf(key, modules[key.rpartition(".")[0]])
-        fkey = (coll,) + path
-        if fkey not in flat:
-            raise KeyError(f"flax tree has no {'/'.join(fkey)} for port tensor {key!r}")
-        value = transform(flat[fkey])
-        if tuple(value.shape) != tuple(tensor.shape):
-            raise ValueError(f"shape mismatch for {key!r}: port {tuple(tensor.shape)}"
-                             f" vs flax {'/'.join(fkey)} {tuple(value.shape)}")
-        tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
-        used.add(fkey)
-    unused = sorted("/".join(k) for k in set(flat) - used)
-    if unused:
-        raise KeyError(f"{len(unused)} flax leaves have no port tensor, "
-                       f"e.g. {unused[:5]}")
-    return len(used)
+        node = tree[coll]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = _INVERSE[transform](tensor.detach().float().cpu().numpy())
+    return tree
 
 
 @torch.no_grad()
