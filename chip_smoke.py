@@ -26,11 +26,28 @@ Phases, one result line each; any failure raises and exits non-zero:
      seeded untrained weights: 1 warm-up step, then 5 timed steps through
      K2-K5 with finite losses;
   9. one float32 step of EfficientSeg-B0 at 128x512, batch 2, on the card
-     (kernels) against the same step on the CPU (twins).
+     (kernels) against the same step on the CPU (twins), at P=64 (the
+     rasterizer K2's route) and at P=60 (P % 8 != 0: the count-map route
+     through K6);
+ 10. K6 (``csrc/rasterize.cu``, built in phase 6) against its twin, bitwise,
+     at the train cell (B=8, M=96, 512x1024, the count map of phase 7's
+     labels), at the full-resolution shape (B=1, M=96, P=1024, 1024x2048,
+     ``fullres_batch``) and on a slab with counts but no valid sample;
+     kernel and twin times beside the bound; at 1024x2048 also the two
+     routes to (cnt, r2), K2 alone against the count map then K6, timed;
+ 11. the full-resolution training slice through the entry point
+     ``instance_segmentation_torch.tools.fullres_demo``: EfficientSeg-B3,
+     bf16 with float32 master weights, 1024x2048, M=96, P=1024, Adam 2e-5,
+     1 warm-up and 3 timed steps in each of five configurations (batch 1
+     and 4, each with and without remat; batch 4 with ae_window (256, 512)),
+     with finite losses and each configuration's launch counts: K6, K3, K4
+     and K5 once a step and K2 never on the count-map route; K5 alone on
+     the windowed one.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after: K1's from the serving slice, K2-K5's from the training slice. The
-lines before the last are a JSON record of the kernels and the
+after: K1's from the serving slice, K2-K5's from the training slice, K6's
+from the full-resolution slice. The lines before the last are a JSON
+record of the kernels and the
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises before
 printing anything.
@@ -38,25 +55,30 @@ printing anything.
 
 from __future__ import annotations
 
+import gc
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from instance_segmentation_torch.device import require_cuda
-from instance_segmentation_torch.kernels import ae_terms, affinity, build, rasterize
+from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
+from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
 from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.serve import Predictor
-from instance_segmentation_torch.training.synthetic import bench_train_batch
+from instance_segmentation_torch.tools import fullres_demo
+from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
 
 AFFINITY_SHAPE = (8, 20000, 96)          # B, K (kp_th), D (max_dets)
 TRAIN_SHAPE = (8, 96, 1024, 512, 1024)   # B, M, P, H, W: bench.py's train cell
+FULLRES_SHAPE = (1, 96, 1024, 1024, 2048)  # B, M, P, H, W: tools/fullres_demo.py's defaults
+FULLRES_RUNS = (("--batch", "1"), ("--batch", "1", "--remat"), ("--batch", "4"),
+                ("--batch", "4", "--remat"), ("--batch", "4", "--ae-window", "256", "512"))
+FULLRES_ITERS = 3
 HBM_BYTES_PER_MS = 3.35e9                # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9                    # H100 SXM: 67 TFLOP/s float32 (no tensor cores)
 KERNELS = ("affinity", "rasterize", "ae_terms")
@@ -143,13 +165,6 @@ def bound(n_bytes: float, n_ops: float):
     memory rate against the float32 operations over its float32 rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / F32_OPS_PER_MS
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout
-    return out.strip()
 
 
 def check(cond: bool, what: str) -> None:
@@ -472,8 +487,9 @@ def phase_train_slice(dev: torch.device, smi: str) -> dict:
 
 def phase_train_parity(dev: torch.device) -> None:
     """One float32 B0 step at 128x512, batch 2: card (kernels) against CPU
-    (twins), same seeded weights and inputs."""
-    h, w, m, p = 128, 512, 8, 64
+    (twins), same seeded weights and inputs; at P=64 through K2 and at P=60
+    (P % 8 != 0) through the count map and K6."""
+    h, w, m = 128, 512, 8
     cfg = EfficientSegConfig(num_classes=8, compound_coef=0, drop_connect_rate=0.0)
     rng = np.random.default_rng(3)
     frames = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
@@ -487,21 +503,126 @@ def phase_train_parity(dev: torch.device) -> None:
     cls_ids = np.where(np.arange(m) < 5, np.arange(m) % 8, -1)[None].repeat(2, 0)
     cls_ids[1] = cls_ids[0, ::-1]
     labels = (polys, np.where(cls_ids >= 0, 8, 0), cls_ids)
-    grads, stats = [], []
-    for device in (dev, torch.device("cpu")):
-        trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=p,
-                          device=device)
-        stats.append({k: float(v) for k, v in trainer.compute_grads(frames, *labels).items()})
-        grads.append({k: q.grad.cpu() for k, q in trainer.model.named_parameters()})
-    for k in stats[1]:
-        check(np.isclose(stats[0][k], stats[1][k], rtol=1e-4, atol=0.0),
-              f"{k}: card {stats[0][k]} vs cpu {stats[1][k]}")
-    top = max(float(g.abs().max()) for g in grads[1].values())
-    worst = max(float((grads[0][k] - g).abs().max()) for k, g in grads[1].items())
-    check(worst <= 1e-3 * top, f"gradients differ by {worst} (max|g| {top})")
-    print(f"[9] B0 128x512 f32 step, card (kernels) vs cpu (twins): stats rtol 1e-4 "
-          f"({', '.join(f'{k} {v:.6g}' for k, v in stats[0].items())}); gradients max|diff| "
-          f"{worst:.3g} <= 1e-3 x max|g| {top:.3g}", flush=True)
+    for p in (64, 60):
+        count_route = not losses.rasterizer_supported(h, w, p)
+        grads, stats = [], []
+        for device in (dev, torch.device("cpu")):
+            k2, k6 = rasterize.launches["rasterize_cnt_r2"], minr2.launches["minr2_from_cnt"]
+            trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=p,
+                              device=device)
+            stats.append({k: float(v) for k, v in trainer.compute_grads(frames, *labels).items()})
+            grads.append({k: q.grad.cpu() for k, q in trainer.model.named_parameters()})
+            if device == dev:
+                route = (rasterize.launches["rasterize_cnt_r2"] - k2,
+                         minr2.launches["minr2_from_cnt"] - k6)
+        check(route == ((0, 1) if count_route else (1, 0)),
+              f"P={p}: K2, K6 launched {route} times on the card")
+        for k in stats[1]:
+            check(np.isclose(stats[0][k], stats[1][k], rtol=1e-4, atol=0.0),
+                  f"P={p} {k}: card {stats[0][k]} vs cpu {stats[1][k]}")
+        top = max(float(g.abs().max()) for g in grads[1].values())
+        worst = max(float((grads[0][k] - g).abs().max()) for k, g in grads[1].items())
+        check(worst <= 1e-3 * top, f"P={p}: gradients differ by {worst} (max|g| {top})")
+        print(f"[9] B0 128x512 f32 step at P={p} ({'count map + K6' if count_route else 'K2'}), "
+              f"card (kernels) vs cpu (twins): stats rtol 1e-4 "
+              f"({', '.join(f'{k} {v:.6g}' for k, v in stats[0].items())}); gradients max|diff| "
+              f"{worst:.3g} <= 1e-3 x max|g| {top:.3g}", flush=True)
+
+
+def phase_minr2(dev: torch.device) -> dict:
+    """K6 against its twin, bitwise, at the train cell and at full resolution,
+    and on a slab with counts but has == 0; at full resolution the two routes
+    to (cnt, r2) timed. Returns K6's record (launches filled in by phase 11)."""
+    cases = []
+    b, m, p, h, w = TRAIN_SHAPE
+    _, labels = bench_train_batch(b, m, h, w, edge_cases=True)
+    cases.append(("train cell", TRAIN_SHAPE, labels))
+    b, m, p, h, w = FULLRES_SHAPE
+    cases.append(("full resolution", FULLRES_SHAPE, fullres_batch(b, m, h, w)[1]))
+    record = None
+    for name, (b, m, p, h, w), labels in cases:
+        t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p)
+        cnt = losses.ae_sample_count(t, h, w)
+        has = t.pt_valid.any(dim=2)
+        got = minr2.minr2_from_cnt(cnt, has)
+        want = minr2.minr2_from_cnt_plain(cnt, has)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        check(got.dtype == torch.uint8 and err == 0, f"K6 differs from its twin by {err} ({name})")
+        ms = cuda_median_ms(lambda: minr2.minr2_from_cnt(cnt, has))
+        plain_ms = cuda_median_ms(lambda: minr2.minr2_from_cnt_plain(cnt, has))
+        live = int(has.sum())
+        # reads the live slabs' counts (2 B/px) and has, writes r2 for every
+        # slab (1 B/px); its work is integer min, no float32 operations
+        bound_ms, bound_by = bound(2 * live * h * w + b * m * h * w + b * m, 0)
+        print(f"[10] K6 minr2_from_cnt {name} B,M,P,H,W={(b, m, p, h, w)} ({live} of {b * m} "
+              f"slabs live): bitwise equal to the twin; kernel {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median of 20)",
+              flush=True)
+        # the record keeps the last case, the full-resolution shape of phase 11
+        record = {"name": "minr2_from_cnt", "route": "cuda",
+                  "source": "instance_segmentation_torch/csrc/rasterize.cu",
+                  "replaces": "instance_segmentation_tpu/losses/minr2_pallas.py:90",
+                  "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    # the full-resolution case goes on: a live slab marked as having no sample
+    slot = int(has[0].nonzero()[0])
+    check(bool(cnt.view(torch.int16)[0, slot].any()), "K6: the chosen slab holds no counts")
+    has_off = has.clone()
+    has_off[0, slot] = False
+    got = minr2.minr2_from_cnt(cnt, has_off)
+    want = minr2.minr2_from_cnt_plain(cnt, has_off)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and bool((got[0, slot] == 200).all()),
+          "K6: a slab with counts but has == 0 is not all 200")
+    print(f"[10] K6 slab (0, {slot}) with counts but has == 0: all 200, equal to the twin",
+          flush=True)
+
+    # the two routes to (cnt, r2) at 1024x2048
+    def count_route():
+        c = losses.ae_sample_count(t, h, w)
+        return c, minr2.minr2_from_cnt(c, has)
+    k2 = rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w)
+    cr = count_route()
+    torch.cuda.synchronize()
+    check(torch.equal(k2[0].view(torch.int16), cr[0].view(torch.int16))
+          and torch.equal(k2[1], cr[1]), "K2 and the count route disagree at 1024x2048")
+    k2_ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
+    cr_ms = cuda_median_ms(count_route)
+    print(f"[10] (cnt, r2) at B,M,P,H,W={FULLRES_SHAPE}: K2 alone {k2_ms:.4f} ms, count map "
+          f"+ K6 {cr_ms:.4f} ms (median of 20; the same maps bitwise)", flush=True)
+    return record
+
+
+def phase_fullres_slice(smi: str) -> int:
+    """Five full-resolution configurations through the entry point; returns
+    K6's launches over them."""
+    counters = {"rasterize_cnt_r2": rasterize.launches, "rasterize_nmap": rasterize.launches,
+                "ae_terms_fwd": ae_terms.launches, "ae_terms_bwd": ae_terms.launches,
+                "minr2_from_cnt": minr2.launches}
+    k6 = 0
+    for flags in FULLRES_RUNS:
+        args = fullres_demo.parse_args(["--iters", str(FULLRES_ITERS), *flags])
+        for name, table in counters.items():
+            table[name] = 0
+        gc.collect()
+        out = fullres_demo.run(args)
+        counts = {name: table[name] for name, table in counters.items()}
+        steps = 1 + FULLRES_ITERS
+        if args.ae_window:
+            want = {name: steps if name == "rasterize_nmap" else 0 for name in counters}
+        else:
+            want = {name: 0 if name == "rasterize_cnt_r2" else steps for name in counters}
+        check(counts == want, f"{flags}: launches {counts}, want {want}")
+        k6 += counts["minr2_from_cnt"]
+        print(f"[11] B3 1024x2048 bf16 train b{out['batch']} remat {out['remat']} ae_window "
+              f"{out['ae_window']} (M=96, P=1024, Adam 2e-5): ms/step {out['step_ms']:.3f} "
+              f"(mean of {FULLRES_ITERS} after 1 warm-up), img/s {out['img_per_s']:.3f}, "
+              f"total_loss {out['total_loss']:.6g}; peak device memory "
+              f"{out['peak_hbm_gb']:.3f} GiB of {out['hbm_limit_gb']:.3f}; launches {counts}; "
+              f"[{smi}]", flush=True)
+    return k6
 
 
 def main() -> None:
@@ -509,7 +630,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
+    smi = nvidia_smi_name_power()
     print(f"[1] device {name} (count {torch.cuda.device_count()}); nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -525,7 +646,7 @@ def main() -> None:
 
     for kernel in KERNELS[1:]:
         build.load(kernel)
-    print("[6] built K2-K5 " + ", ".join(
+    print("[6] built K2-K6 " + ", ".join(
         f"{built[n][0].relative_to(build.BUILD_DIR.parents[1])} in {built[n][1]:.2f} s"
         for n in KERNELS[1:]) + " (all nvcc runs started together)", flush=True)
     records = phase_train_kernels(dev)
@@ -533,8 +654,10 @@ def main() -> None:
     for r in records:
         r["launches"] = counts[r["name"]]
     phase_train_parity(dev)
+    k6_record = phase_minr2(dev)
+    k6_record["launches"] = phase_fullres_slice(smi)
 
-    print(json.dumps({"kernels": [record] + records}))
+    print(json.dumps({"kernels": [record] + records + [k6_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

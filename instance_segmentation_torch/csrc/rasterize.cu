@@ -1,4 +1,5 @@
-// Kernels K2 and K5: the boundary-point rasterizers of the training loss.
+// Kernels K2, K5 and K6: the boundary-point rasterizers of the training loss
+// and the min-r2 map of the count-map route.
 //
 // K2 replaces instance_segmentation_tpu/losses/rasterize_pallas.py
 // rasterize_cnt_r2 (_make_kernel): from the packed point list it writes, per
@@ -9,6 +10,13 @@
 // K5 replaces rasterize_pallas.py rasterize_nmap (_make_nmap_kernel): per
 // image, the sum of the valid samples' inward normals at their pixels, the
 // tangent loss's target field (two f32 planes).
+//
+// K6 replaces instance_segmentation_tpu/losses/minr2_pallas.py
+// minr2_from_cnt (_make_kernel, _axis_min): the same u8 min-r2 map, read
+// from an existing u16 count map (the route taken where K2's rule refuses
+// the shape, e.g. 1024x2048), with slabs whose instance has no valid sample
+// set to 200 whatever their counts hold. Bit-exact. K2 and K6 share the
+// separable min (column_min_pass, row_min).
 //
 // Points arrive pre-clipped: valid samples lie inside the image, invalid
 // ones are encoded out of range (y = H, x = W) and are never counted.
@@ -29,6 +37,12 @@
 //    fixed set of columns and adds the listed normals that land there, in
 //    list order. No float atomics: the sums are deterministic, and each
 //    pixel's sum is taken in the order a sequential scatter-add takes it.
+//  * K6 reads the live slabs' counts (2 B/px) and writes r2 (1 B/px) for
+//    every slab: bytes. One block per (16 x 128 tile, image * instance). A
+//    slab whose instance has no valid sample (most slots are padding) reads
+//    no count: it stores 200 with 4-byte stores. A live tile loads its halo
+//    of cnt != 0 flags (out-of-image pixels empty) into shared memory and
+//    runs K2's two passes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +60,39 @@ constexpr int kHaloH = kTileH + 2 * kRadius;
 constexpr int kHaloW = kTileW + 2 * kRadius;
 constexpr int kRowsPerPass = kThreads / (kTileW / 4);   // 8
 constexpr int kPasses = kTileH / kRowsPerPass;          // 2
+
+// Column pass of the separable min over the tile and its halo rows:
+// colmin[rr][cc] = min over |o| <= R of o^2 where flags[rr][cc + R + o] > 0,
+// else 200. Neighbours outside the image hold no samples, so they never
+// win: the reference's +200 border penalty has the same effect.
+__device__ __forceinline__ void column_min_pass(int (*flags)[kHaloW],
+                                                uint8_t (*colmin)[kTileW], int tid) {
+  for (int i = tid; i < kHaloH * kTileW; i += kThreads) {
+    const int rr = i / kTileW, cc = i % kTileW;
+    int best = flags[rr][cc + kRadius] > 0 ? 0 : kBig;
+    for (int o = 1; o <= kRadius; ++o) {
+      if (flags[rr][cc + kRadius - o] > 0 || flags[rr][cc + kRadius + o] > 0)
+        best = min(best, o * o);
+    }
+    colmin[rr][cc] = (uint8_t)best;
+  }
+}
+
+// Row pass at tile pixel (tr, tc): min over |o| <= R of colmin + o^2
+// (values stay <= 200 + 2 R^2 = 218, so u8 holds them).
+__device__ __forceinline__ uint8_t row_min(uint8_t (*colmin)[kTileW], int tr, int tc) {
+  int best = colmin[tr + kRadius][tc];
+  for (int o = 1; o <= kRadius; ++o) {
+    best = min(best, (int)colmin[tr + kRadius - o][tc] + o * o);
+    best = min(best, (int)colmin[tr + kRadius + o][tc] + o * o);
+  }
+  return (uint8_t)best;
+}
+
+__device__ __forceinline__ uint32_t pack4(const uint8_t v[4]) {
+  return (uint32_t)v[0] | ((uint32_t)v[1] << 8) | ((uint32_t)v[2] << 16) |
+         ((uint32_t)v[3] << 24);
+}
 
 __global__ void __launch_bounds__(kThreads)
 cnt_r2_kernel(const int32_t* __restrict__ ys,    // [B, M, P]
@@ -88,18 +135,7 @@ cnt_r2_kernel(const int32_t* __restrict__ ys,    // [B, M, P]
         atomicAdd(&counts[ly][lx], 1);
     }
     __syncthreads();
-    // column pass: min over |o| <= R of o^2 at sample pixels, else 200.
-    // Neighbours outside the image hold no samples, so they never win: the
-    // reference's +200 border penalty has the same effect.
-    for (int i = tid; i < kHaloH * kTileW; i += kThreads) {
-      const int rr = i / kTileW, cc = i % kTileW;
-      int best = counts[rr][cc + kRadius] > 0 ? 0 : kBig;
-      for (int o = 1; o <= kRadius; ++o) {
-        if (counts[rr][cc + kRadius - o] > 0 || counts[rr][cc + kRadius + o] > 0)
-          best = min(best, o * o);
-      }
-      colmin[rr][cc] = (uint8_t)best;
-    }
+    column_min_pass(counts, colmin, tid);
     __syncthreads();
     for (int k = 0; k < kPasses; ++k) {
       const int tr = lr + k * kRowsPerPass;
@@ -108,13 +144,8 @@ cnt_r2_kernel(const int32_t* __restrict__ ys,    // [B, M, P]
       uint8_t rv[4];
       for (int j = 0; j < 4; ++j) {
         const int c = counts[tr + kRadius][lc + j + kRadius];
-        int best = colmin[tr + kRadius][lc + j];
-        for (int o = 1; o <= kRadius; ++o) {
-          best = min(best, (int)colmin[tr + kRadius - o][lc + j] + o * o);
-          best = min(best, (int)colmin[tr + kRadius + o][lc + j] + o * o);
-        }
         cv[j] = (uint16_t)c;
-        rv[j] = (uint8_t)best;
+        rv[j] = row_min(colmin, tr, lc + j);
         if (c > 0) uni_bits |= 1u << (4 * k + j);
       }
       if (row < H && col_ok) {
@@ -122,9 +153,7 @@ cnt_r2_kernel(const int32_t* __restrict__ ys,    // [B, M, P]
         *reinterpret_cast<uint2*>(cnt + o) =
             make_uint2((uint32_t)cv[0] | ((uint32_t)cv[1] << 16),
                        (uint32_t)cv[2] | ((uint32_t)cv[3] << 16));
-        *reinterpret_cast<uint32_t*>(r2 + o) =
-            (uint32_t)rv[0] | ((uint32_t)rv[1] << 8) | ((uint32_t)rv[2] << 16) |
-            ((uint32_t)rv[3] << 24);
+        *reinterpret_cast<uint32_t*>(r2 + o) = pack4(rv);
       }
     }
     __syncthreads();                             // before counts is zeroed again
@@ -137,6 +166,49 @@ cnt_r2_kernel(const int32_t* __restrict__ ys,    // [B, M, P]
           (bits & 1u) | (((bits >> 1) & 1u) << 8) | (((bits >> 2) & 1u) << 16) |
           (((bits >> 3) & 1u) << 24);
     }
+  }
+}
+
+// ---- K6 ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+minr2_kernel(const uint16_t* __restrict__ cnt,   // [B * M, H, W]
+             const uint8_t* __restrict__ has,    // [B * M]
+             int H, int W,
+             uint8_t* __restrict__ r2) {         // [B * M, H, W]
+  __shared__ int flags[kHaloH][kHaloW];
+  __shared__ uint8_t colmin[kHaloH][kTileW];
+  const size_t bm = blockIdx.z;
+  const size_t slab = bm * H * W;
+  const int r0 = blockIdx.y * kTileH, c0 = blockIdx.x * kTileW;
+  const int tid = threadIdx.x;
+  const int lc = (tid % (kTileW / 4)) * 4;
+  const int lr = tid / (kTileW / 4);
+  const bool col_ok = c0 + lc < W;               // W % 4 == 0: all 4 or none
+  if (!has[bm]) {                                // uniform across the block
+    for (int k = 0; k < kPasses; ++k) {
+      const int row = r0 + lr + k * kRowsPerPass;
+      if (row < H && col_ok)
+        *reinterpret_cast<uint32_t*>(r2 + slab + (size_t)row * W + c0 + lc) = 0xC8C8C8C8u;
+    }
+    return;
+  }
+  for (int i = tid; i < kHaloH * kHaloW; i += kThreads) {
+    const int rr = i / kHaloW, cc = i % kHaloW;
+    const int row = r0 - kRadius + rr, col = c0 - kRadius + cc;
+    (&flags[0][0])[i] = (row >= 0 && row < H && col >= 0 && col < W)
+                            ? (cnt[slab + (size_t)row * W + col] != 0)
+                            : 0;
+  }
+  __syncthreads();
+  column_min_pass(flags, colmin, tid);
+  __syncthreads();
+  for (int k = 0; k < kPasses; ++k) {
+    const int tr = lr + k * kRowsPerPass;
+    const int row = r0 + tr;
+    uint8_t rv[4];
+    for (int j = 0; j < 4; ++j) rv[j] = row_min(colmin, tr, lc + j);
+    if (row < H && col_ok)
+      *reinterpret_cast<uint32_t*>(r2 + slab + (size_t)row * W + c0 + lc) = pack4(rv);
   }
 }
 
@@ -220,6 +292,15 @@ extern "C" int iseg_rasterize_cnt_r2(const void* ys, const void* xs, const void*
   cnt_r2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ys, (const int32_t*)xs, (const uint8_t*)has, M, P, H, W,
       (uint16_t*)cnt, (uint8_t*)r2, (uint8_t*)uni);
+  return (int)cudaGetLastError();
+}
+
+// BM = B * M slabs; gridDim.z caps it at 65535 (the wrapper checks).
+extern "C" int iseg_minr2_from_cnt(const void* cnt, const void* has, int BM, int H, int W,
+                                   void* r2, void* stream) {
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, BM);
+  minr2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)cnt, (const uint8_t*)has, H, W, (uint8_t*)r2);
   return (int)cudaGetLastError();
 }
 

@@ -38,7 +38,7 @@ def u16_to_i32(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16).to(torch.int32) & 0xFFFF
 
 
-def _i32_to_u16(t: torch.Tensor) -> torch.Tensor:
+def i32_to_u16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int16).view(torch.uint16)
 
 
@@ -109,7 +109,7 @@ def rasterize_cnt_r2_plain(points: torch.Tensor, pt_valid: torch.Tensor, h: int,
     """(cnt u16 [B,M,H,W], r2 u8 [B,M,H,W], union u8 [B,H,W])."""
     cnt = sample_count(points, pt_valid, h, w)
     imp = cnt > 0
-    return _i32_to_u16(cnt), shift_min_r2(imp, radius), imp.any(dim=1).to(torch.uint8)
+    return i32_to_u16(cnt), shift_min_r2(imp, radius), imp.any(dim=1).to(torch.uint8)
 
 
 @functools.cache

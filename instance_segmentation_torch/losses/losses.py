@@ -1,30 +1,50 @@
 """The training objective, fully on the device.
 
-Counterpart of ``instance_segmentation_tpu/losses/losses.py`` on its default,
-exact path (``LossConfig()``, no ``ae_window``), with the model's planar
-train heads:
+Counterpart of ``instance_segmentation_tpu/losses/losses.py`` with the
+model's planar train heads:
 
     total = cls + wh (box regression * 50) + kp + ae + tan
 
-The rasterizer (kernel K2) makes the per-instance sample-count map, the
-min-r2 map and their union once; the kp focal loss reads the union, the AE
-loss the count and r2 maps through kernels K3/K4, and the tangent loss the
-summed-normal field of kernel K5. On CPU tensors the kernels' plain twins
-run instead.
+The AE loss is exact by default (``LossConfig()``) and takes one of two
+routes to its per-instance sample-count and min-r2 maps, the routes the JAX
+package takes (``compose_loss`` there):
+
+* where the rasterizer takes the shape (``rasterizer_supported``, a copy of
+  ``rasterize_pallas.supported``: up to 512x1024, P % 8 == 0), kernel K2
+  makes the count map, the min-r2 map and their union at once from the
+  point list, and the kp focal loss reads the union;
+* elsewhere, as at the full 1024x2048 frame, ``ae_sample_count`` makes the
+  u16 count map with a scatter-add, kernel K6 its min-r2 map, and the kp
+  focal loss reads the count map's union over instances.
+
+The port follows the reference's route so that a full-resolution step does
+on the card the work the reference's full-resolution step does; whether K2
+should take over there on this card is a measurement (``chip_smoke.py``),
+not a choice made here. Both routes feed kernels K3/K4 (the AE focal and
+pull terms). The tangent loss reads the summed-normal field of kernel K5 at
+every size (the reference's full-resolution step scatters it with XLA
+instead: the same function up to summation order).
+
+With ``LossConfig(ae_window=(h, w))`` the AE loss is the reference's
+approximate windowed form (``ae_loss_windowed``): each instance's focal term
+over a fixed crop, plus the pull term, in plain PyTorch; kp comes from the
+deduplicated point list, and no rasterizer runs.
+
+On CPU tensors the kernels' plain twins run instead.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from instance_segmentation_torch.kernels import ae_terms as ae_kernels
-from instance_segmentation_torch.kernels import rasterize
-from instance_segmentation_torch.ops.targets import Targets
+from instance_segmentation_torch.kernels import minr2, rasterize
+from instance_segmentation_torch.ops.targets import Targets, gaussian_window_target
 
 _EPS = 1e-4
 
@@ -38,6 +58,16 @@ class LossConfig:
     reg_weight: float = 50.0      # box-regression scaling
     ae_weight: float = 1.0
     tan_weight: float = 1.0
+    ae_window: Optional[Tuple[int, int]] = None
+    # fixed (rows, cols) crop per instance for the AE focal term; None (the
+    # default) is the exact loss over the whole image
+
+
+def rasterizer_supported(h: int, w: int, p: int) -> bool:
+    """The reference's rule for taking the rasterizer K2
+    (``rasterize_pallas.supported``); elsewhere the count-map route runs."""
+    return (h % 8 == 0 and w % 128 == 0 and p % 8 == 0
+            and (w <= 512 or w % 512 == 0) and h * w <= 512 * 1024)
 
 
 def coordinate_grid(h: int, w: int, device=None) -> torch.Tensor:
@@ -130,6 +160,51 @@ def kp_focal_loss_from_union(kp_logits: torch.Tensor, union: torch.Tensor) -> to
     return torch.where(num_pos == 0, -neg, -(pos + neg) / num_pos.clamp_min(1.0))
 
 
+def kp_focal_loss_from_cnt(kp_logits: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """The kp focal loss on the count-map route: the target is the union over
+    instances of cnt != 0 (cnt u16 [B, M, H, W], read through its int16
+    view)."""
+    return kp_focal_loss_from_union(kp_logits, (cnt.view(torch.int16) != 0).any(dim=1))
+
+
+def kp_focal_loss_from_points(kp_logits: torch.Tensor, targets: Targets) -> torch.Tensor:
+    """The kp focal loss from the point list, as the reference computes it
+    when no count map exists (the windowed AE route): the binary target is 1
+    at the deduplicated sample pixels, so the loss is
+    -(pos at those pixels + neg everywhere - neg at those pixels) / n_unique.
+    One sort per image deduplicates the pixels."""
+    kp = kp_logits if kp_logits.dim() == 3 else kp_logits[..., 0]
+    B, H, W = kp.shape
+    hw = H * W
+    pred = torch.sigmoid(kp).clamp(_EPS, 1.0 - _EPS)
+    flat = (targets.points[..., 0].long() * W + targets.points[..., 1].long()).reshape(B, -1)
+    flat = torch.where(targets.pt_valid.reshape(B, -1), flat, hw)
+    flat = torch.sort(flat, dim=-1).values
+    prev = torch.cat([flat.new_full((B, 1), -1), flat[:, :-1]], dim=1)
+    uf = ((flat != prev) & (flat < hw)).to(torch.float32)
+    pv = torch.gather(pred.reshape(B, hw), 1, flat.clamp(0, hw - 1))
+    pos = (torch.log(pv) * (1.0 - pv) ** 2 * uf).sum()
+    neg_corr = (torch.log(1.0 - pv) * pv ** 2 * uf).sum()
+    neg_all = (torch.log(1.0 - pred) * pred ** 2).sum()
+    num_pos = uf.sum()
+    return torch.where(num_pos == 0, -neg_all,
+                       -(pos + neg_all - neg_corr) / num_pos.clamp_min(1.0))
+
+
+def focal_heatmap_loss(pred: torch.Tensor, gt: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """CornerNet's penalty-reduced focal loss over the last two dims, inside a
+    0/1 window: pred in (0, 1), gt in [0, 1] with 1 at keypoints."""
+    pred = pred.clamp(_EPS, 1.0 - _EPS)
+    pos = (gt == 1.0).to(torch.float32) * window
+    neg = (gt < 1.0).to(torch.float32) * window
+    t2 = (1.0 - gt) * (1.0 - gt)
+    neg_w = t2 * t2                                # (1 - gt)^4 by squaring, as XLA
+    pos_loss = (torch.log(pred) * (1.0 - pred) ** 2 * pos).sum(dim=(-2, -1))
+    neg_loss = (torch.log(1.0 - pred) * pred ** 2 * neg_w * neg).sum(dim=(-2, -1))
+    num_pos = pos.sum(dim=(-2, -1))
+    return torch.where(num_pos == 0, -neg_loss, -(pos_loss + neg_loss) / num_pos.clamp_min(1.0))
+
+
 # ---- AE (spatial-embedding) loss ---------------------------------------------------
 
 def _gauss_neg_tables() -> Dict[int, float]:
@@ -154,15 +229,15 @@ def _gauss_neg_tables() -> Dict[int, float]:
 _NEG4_TABLE = _gauss_neg_tables()        # {r2: (1 - g)^4}, r2 in 0..18
 
 
-def ae_table(targets: Targets, xym: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """The per-instance table [B, M, 8] of K3/K4: center embedding (the grid
-    at the truncated, clipped center), focal window lt/rb (the reference's
-    2x sample extent around the center, ``lt`` clipped to [0, 2048], ``rb``
-    to the image) and the valid flag."""
-    centers_int = targets.centers.to(torch.int32)                      # [B, M, 2]
+def _instance_windows(targets: Targets, xym: torch.Tensor, h: int, w: int):
+    """Per instance (all [B, M, 2]): the truncated center (row, col), its
+    embedding (the grid at the center clipped into the image), and the focal
+    window lt/rb: the reference's 2x sample extent around the center, ``lt``
+    clipped to [0, 2048], ``rb`` to the image (empty without samples)."""
+    centers_int = targets.centers.to(torch.int32)
     ci = centers_int[..., 0].clamp(0, h - 1).long()
     cj = centers_int[..., 1].clamp(0, w - 1).long()
-    c_emb = xym[ci, cj]                                                # [B, M, 2]
+    c_emb = xym[ci, cj]
     val = targets.pt_valid[..., None]
     big = 1 << 20
     kmin = torch.where(val, targets.points, big).amin(dim=2)
@@ -171,15 +246,30 @@ def ae_table(targets: Targets, xym: torch.Tensor, h: int, w: int) -> torch.Tenso
     lt = (centers_int - half).clamp(0, 2048)
     rb = centers_int + half
     rb = torch.stack([rb[..., 0].clamp(0, h), rb[..., 1].clamp(0, w)], dim=-1)
+    return centers_int, c_emb, lt, rb
+
+
+def ae_table(targets: Targets, xym: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The per-instance table [B, M, 8] of K3/K4: center embedding, focal
+    window lt/rb (``_instance_windows``) and the valid flag."""
+    _, c_emb, lt, rb = _instance_windows(targets, xym, h, w)
     return ae_kernels.pack_table(c_emb, lt, rb, targets.inst_valid)
+
+
+def ae_sample_count(targets: Targets, h: int, w: int) -> torch.Tensor:
+    """u16 [B, M, H, W] per-instance sample-count map of the count-map route:
+    a scatter-add of one per valid sample at its clipped pixel (exact in
+    u16: counts <= P)."""
+    return rasterize.i32_to_u16(rasterize.sample_count(targets.points, targets.pt_valid, h, w))
 
 
 def ae_loss(ae: Tuple[torch.Tensor, ...], targets: Targets, xym: torch.Tensor,
             cnt: torch.Tensor, r2: torch.Tensor, cfg: LossConfig = LossConfig()) -> torch.Tensor:
     """ae: the four planar [B, H, W] heads (2 offsets, 2 log-sigmas); cnt/r2
-    from K2. Per instance: focal loss of the embedding affinity against the
-    gaussian target inside the instance window, plus the pull term; summed
-    over instances, divided by the valid count, averaged over images."""
+    from K2, or from ``ae_sample_count`` and K6. Per instance: focal loss of
+    the embedding affinity against the gaussian target inside the instance
+    window, plus the pull term; summed over instances, divided by the valid
+    count, averaged over images."""
     a0, a1, a2, a3 = ae
     B, H, W = a0.shape
     ey = torch.tanh(a0) + xym[..., 0]
@@ -192,6 +282,76 @@ def ae_loss(ae: Tuple[torch.Tensor, ...], targets: Targets, xym: torch.Tensor,
     pos, neg, npos, pull = ae_kernels.ae_terms(ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     i_loss = torch.where(npos == 0, -neg, -(pos + neg) / npos.clamp_min(1.0))
     v_loss = pull * targets.inst_valid.to(torch.float32)
+    n = targets.inst_valid.sum(dim=1).to(torch.float32)
+    per = torch.where(n > 0, (i_loss.sum(dim=1) + v_loss.sum(dim=1)) / n.clamp_min(1.0),
+                      torch.zeros_like(n))
+    return cfg.ae_weight * per.sum() / B
+
+
+def _pull_terms(ey: torch.Tensor, ex: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                c_emb: torch.Tensor, targets: Targets) -> torch.Tensor:
+    """The pull term per instance, [B, M] (the reference's ``_pull_term_one``
+    for every instance at once): at each valid sample of instance m, the
+    affinity of its embedding to every valid center; the L1 gap between the
+    affinity to m's own center and the best one, summed over the samples."""
+    B, H, W = ey.shape
+    M, P = targets.points.shape[1:3]
+    ys = targets.points[..., 0].clamp(0, H - 1).long()
+    xs = targets.points[..., 1].clamp(0, W - 1).long()
+    flat = (ys * W + xs).view(B, M * P)
+
+    def at_samples(plane):                                  # [B, M, P, 1]
+        return torch.gather(plane.reshape(B, H * W), 1, flat).view(B, M, P, 1)
+    dy = at_samples(ey) - c_emb[:, None, None, :, 0]        # [B, M, P, M]
+    dx = at_samples(ex) - c_emb[:, None, None, :, 1]
+    d = torch.exp(-(dy * dy * at_samples(sy) + dx * dx * at_samples(sx)))
+    d = torch.where(targets.inst_valid[:, None, None, :], d, float("-inf"))
+    d_max = d.amax(dim=-1)                                  # ties share the gradient, as jnp.max
+    own = torch.diagonal(d, dim1=1, dim2=3).permute(0, 2, 1)   # [B, M, P]: d[b, m, p, m]
+    gap = torch.where(targets.pt_valid, (own - d_max).abs(), torch.zeros_like(own))
+    return gap.sum(dim=-1)
+
+
+def ae_loss_windowed(ae: Tuple[torch.Tensor, ...], targets: Targets, xym: torch.Tensor,
+                     cfg: LossConfig) -> torch.Tensor:
+    """The reference's ``_ae_loss_windowed`` (``cfg.ae_window`` set), for all
+    instances at once: each instance's focal term over a fixed (wh, ww) crop
+    at its center, the origin clipped into the image, against the gaussian
+    target of its samples in the crop and inside its focal window; plus the
+    pull term. Approximate where an instance's window exceeds the crop."""
+    wh, ww = cfg.ae_window
+    a0, a1, a2, a3 = ae
+    B, H, W = a0.shape
+    if wh > H or ww > W:
+        raise ValueError(f"ae_window {cfg.ae_window} exceeds the {H}x{W} image")
+    ey = torch.tanh(a0) + xym[..., 0]
+    ex = torch.tanh(a1) + xym[..., 1]
+    sy = torch.exp(a2)
+    sx = torch.exp(a3)
+    M = targets.points.shape[1]
+    centers_int, c_emb, lt, rb = _instance_windows(targets, xym, H, W)
+    valid_f = targets.inst_valid.to(torch.float32)
+    origin = torch.stack([(centers_int[..., 0] - wh // 2).clamp(0, H - wh),
+                          (centers_int[..., 1] - ww // 2).clamp(0, W - ww)], dim=-1)
+    rows = origin[..., 0, None] + torch.arange(wh, device=a0.device)       # [B, M, wh]
+    cols = origin[..., 1, None] + torch.arange(ww, device=a0.device)       # [B, M, ww]
+    win_r = (rows >= lt[..., 0, None]) & (rows < rb[..., 0, None])
+    win_c = (cols >= lt[..., 1, None]) & (cols < rb[..., 1, None])
+    window = (win_r[..., :, None] & win_c[..., None, :]).to(torch.float32)
+    window = window * valid_f[..., None, None]
+    idx = (rows[..., :, None].long() * W + cols[..., None, :]).view(B, M * wh * ww)
+
+    def crop(plane):                                        # [B, M, wh, ww]
+        return torch.gather(plane.reshape(B, H * W), 1, idx).view(B, M, wh, ww)
+    dy = crop(ey) - c_emb[..., 0, None, None]
+    dx = crop(ex) - c_emb[..., 1, None, None]
+    pred = torch.exp(-(dy * dy * crop(sy) + dx * dx * crop(sx)))
+    rel = targets.points - origin[:, :, None, :]
+    val_in = (targets.pt_valid & (rel[..., 0] >= 0) & (rel[..., 0] < wh)
+              & (rel[..., 1] >= 0) & (rel[..., 1] < ww))
+    tgt = gaussian_window_target(rel, val_in, wh, ww)
+    i_loss = focal_heatmap_loss(pred, tgt, window=window) * valid_f
+    v_loss = _pull_terms(ey, ex, sy, sx, c_emb, targets) * valid_f
     n = targets.inst_valid.sum(dim=1).to(torch.float32)
     per = torch.where(n > 0, (i_loss.sum(dim=1) + v_loss.sum(dim=1)) / n.clamp_min(1.0),
                       torch.zeros_like(n))
@@ -224,14 +384,24 @@ def tangent_loss(tan: Tuple[torch.Tensor, torch.Tensor], targets: Targets,
 def compose_loss(outputs, targets: Targets, anchors: torch.Tensor,
                  cfg: LossConfig = LossConfig()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs = (kp, ae, tan, regression, classification) from EfficientSeg in
-    training mode (planar heads). Returns (total, the six stats)."""
+    training mode (planar heads). Returns (total, the six stats). The kp and
+    AE losses take the route of the module docstring."""
     kp, ae, tan, regression, classification = outputs
     H, W = kp.shape[1], kp.shape[2]
     xym = coordinate_grid(H, W, kp.device)
     cls_l, reg_l = det_focal_loss(classification, regression, anchors, targets.det_ann, cfg)
-    cnt, r2, union = rasterize.rasterize_cnt_r2(targets.points, targets.pt_valid, H, W)
-    kp_l = kp_focal_loss_from_union(kp, union)
-    ae_l = ae_loss(ae, targets, xym, cnt, r2, cfg)
+    if cfg.ae_window is not None:
+        kp_l = kp_focal_loss_from_points(kp, targets)
+        ae_l = ae_loss_windowed(ae, targets, xym, cfg)
+    else:
+        if rasterizer_supported(H, W, targets.points.shape[2]):
+            cnt, r2, union = rasterize.rasterize_cnt_r2(targets.points, targets.pt_valid, H, W)
+            kp_l = kp_focal_loss_from_union(kp, union)
+        else:
+            cnt = ae_sample_count(targets, H, W)
+            r2 = minr2.minr2_from_cnt(cnt, targets.pt_valid.any(dim=2))
+            kp_l = kp_focal_loss_from_cnt(kp, cnt)
+        ae_l = ae_loss(ae, targets, xym, cnt, r2, cfg)
     tan_l = tangent_loss(tan, targets, cfg)
     total = cls_l + reg_l + kp_l + ae_l + tan_l
     stats = {"cls_loss": cls_l, "wh_loss": reg_l, "kp_loss": kp_l,

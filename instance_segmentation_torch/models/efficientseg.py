@@ -18,22 +18,32 @@ four and tan as a tuple of two such planes. They are channel views of the
 NCHW head outputs, not copies.
 
 Inside, tensors are NCHW in ``compute_dtype``.
+
+With ``cfg.remat`` the training forward keeps only the inputs of the
+backbone and of the U-Net decoder (the two modules the reference wraps in
+``nn.remat``) and recomputes their activations in the backward
+(``torch.utils.checkpoint``, non-reentrant). The recompute leaves the
+batch-norm running statistics alone and replays the drop-connect masks of
+the forward (the backbone generator is rewound for it), so a step with
+``remat`` computes what a step without it computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from instance_segmentation_torch.models.bifpn import BiFPN
 from instance_segmentation_torch.models.efficientnet import (
     EfficientNetFeatures, feature_channels,
 )
 from instance_segmentation_torch.models.heads import Classifier, Regressor
-from instance_segmentation_torch.models.layers import cast_convs
+from instance_segmentation_torch.models.layers import cast_convs, running_stats_frozen
 from instance_segmentation_torch.models.unet_decoder import UNetDecoder
 
 # Per-compound-coefficient scaling tables (same as the reference).
@@ -58,6 +68,7 @@ class EfficientSegConfig:
     mean: Tuple[float, ...] = DEFAULT_MEAN
     std: Tuple[float, ...] = DEFAULT_STD
     drop_connect_rate: float = 0.2      # backbone stochastic depth, training only
+    remat: bool = False                 # recompute backbone and decoder activations in backward
 
     def __post_init__(self):
         if not 0 <= self.compound_coef <= 7:
@@ -75,6 +86,31 @@ class EfficientSegConfig:
     @property
     def anchor_scale(self) -> float:
         return ANCHOR_SCALE[self.compound_coef]
+
+
+@contextlib.contextmanager
+def _as_in_forward(generator: Optional[torch.Generator], state: Optional[torch.Tensor]):
+    """The recompute of a checkpointed segment: running statistics frozen and
+    ``generator`` (if any) rewound to ``state``, its state when the forward
+    ran the segment; the generator's own state is restored afterwards."""
+    now = None if generator is None else generator.get_state()
+    if generator is not None:
+        generator.set_state(state)
+    try:
+        with running_stats_frozen():
+            yield
+    finally:
+        if generator is not None:
+            generator.set_state(now)
+
+
+def _remat(fn, *args, generator: Optional[torch.Generator] = None):
+    """``fn(*args)`` under non-reentrant activation checkpointing, its
+    recompute run as ``_as_in_forward`` says."""
+    state = None if generator is None else generator.get_state()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _as_in_forward(generator, state)))
 
 
 class EfficientSeg(nn.Module):
@@ -111,11 +147,16 @@ class EfficientSeg(nn.Module):
     def forward(self, images: torch.Tensor):
         x = (images.float() - self.pixel_mean) / self.pixel_std
         x = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
-        blocks = self.backbone_net["model"](x)
+        backbone = self.backbone_net["model"]
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
+        if remat:
+            blocks = _remat(backbone, x, generator=backbone.generator)
+        else:
+            blocks = backbone(x)
         feats = self.bifpn(blocks[2:5])
         regression = self.regressor(feats).float()
         classification = self.classifier(feats)
-        heads = self.kp_header(x, blocks)
+        heads = _remat(self.kp_header, x, blocks) if remat else self.kp_header(x, blocks)
         if self.training:
             kp, ae, tan = (tuple(t.unbind(1)) for t in heads)
             return kp[0], ae, tan, regression, classification

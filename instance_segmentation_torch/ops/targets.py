@@ -28,6 +28,7 @@ truncates to.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -113,3 +114,43 @@ def generate_targets(polys: torch.Tensor, n_verts: torch.Tensor, cls_ids: torch.
     pt_valid = pt_valid & inst_valid[..., None]
     return Targets(det_ann=det, centers=centers, inst_valid=inst_valid, points=points,
                    normals=normals, pt_valid=pt_valid, kp_tgt=None)
+
+
+def _shift_zero_fill(x: torch.Tensor, d: int, dim: int) -> torch.Tensor:
+    """x shifted by d along dim (out[i] = x[i - d]), zeros shifted in."""
+    y = torch.roll(x, d, dims=dim)
+    if d > 0:
+        y.narrow(dim, 0, d).zero_()
+    elif d < 0:
+        y.narrow(dim, x.shape[dim] + d, -d).zero_()
+    return y
+
+
+def gaussian_window_target(points: torch.Tensor, pt_valid: torch.Tensor, h: int, w: int,
+                           radius: int = 3) -> torch.Tensor:
+    """The radius-3 CenterNet gaussian (sigma = diameter / 6) max-splatted at
+    every valid sample, [..., h, w] for points [..., P, 2] (row, col) and
+    pt_valid [..., P]; the reference's ``gaussian_window_target`` for each
+    leading index. Samples are clipped into the window; impulses are
+    max-spread by a column pass then a row pass of gaussian-weighted shifts
+    (the weights rounded to float32, the products in float32)."""
+    *lead, _, _ = points.shape
+    n = math.prod(lead)
+    ys = points[..., 0].clamp(0, h - 1).long()
+    xs = points[..., 1].clamp(0, w - 1).long()
+    base = torch.arange(n, device=points.device).view(*lead, 1) * (h * w)
+    impulses = torch.zeros(n * h * w, dtype=torch.float32, device=points.device)
+    impulses[(base + ys * w + xs)[pt_valid]] = 1.0
+    impulses = impulses.view(*lead, h, w)
+    sigma = (2 * radius + 1) / 6.0
+    tmp = impulses
+    for dx in range(-radius, radius + 1):
+        if dx:
+            g = math.exp(-(dx * dx) / (2.0 * sigma * sigma))
+            tmp = torch.maximum(tmp, g * _shift_zero_fill(impulses, dx, -1))
+    out = tmp
+    for dy in range(-radius, radius + 1):
+        if dy:
+            g = math.exp(-(dy * dy) / (2.0 * sigma * sigma))
+            out = torch.maximum(out, g * _shift_zero_fill(tmp, dy, -2))
+    return out

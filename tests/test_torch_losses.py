@@ -388,12 +388,13 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
 
 def test_kernel_sources_name_what_they_replace():
     from instance_segmentation_torch.kernels import build
-    for name, fns, replaced in (("rasterize", ("iseg_rasterize_cnt_r2", "iseg_rasterize_nmap"),
-                                 "rasterize_pallas.py"),
+    for name, fns, replaced in (("rasterize", ("iseg_rasterize_cnt_r2", "iseg_rasterize_nmap",
+                                               "iseg_minr2_from_cnt"),
+                                 ("rasterize_pallas.py", "minr2_pallas.py")),
                                 ("ae_terms", ("iseg_ae_terms_fwd", "iseg_ae_terms_bwd"),
-                                 "ae_pallas.py")):
+                                 ("ae_pallas.py",))):
         src = (build.CSRC / f"{name}.cu").read_text()
-        assert replaced in src and all(f in src for f in fns)
+        assert all(r in src for r in replaced) and all(f'extern "C" int {f}(' in src for f in fns)
         assert build.library_path(name).name.startswith(f"{name}-")
     src = (build.CSRC / "ae_terms.cu").read_text()
     assert f"kTileH = {tae.TILE_H};" in src and f"kTileW = {tae.TILE_W};" in src

@@ -96,6 +96,7 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
         "import instance_segmentation_torch.kernels.build\n"
         "import instance_segmentation_torch.training.train_step, instance_segmentation_torch.losses\n"
         "import instance_segmentation_torch.kernels.rasterize, instance_segmentation_torch.kernels.ae_terms\n"
+        "import instance_segmentation_torch.kernels.minr2, instance_segmentation_torch.tools.fullres_demo\n"
         "import instance_segmentation_torch.ops.targets, instance_segmentation_torch.weights\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2',\n"
