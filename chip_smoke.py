@@ -15,7 +15,7 @@ Phases, one result line each; any failure raises and exits non-zero:
   5. the serving slice: an EfficientSeg-B3 ``Predictor`` in bf16 at 512x1024
      (frames of a 1024x2048 image at scale 2), seeded untrained weights,
      default decode, answering 3 requests at batch 1 and 3 at batch 8;
-  6. build kernels K2-K5 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``);
+  6. build kernels K2-K6 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``);
   7. K2, K5, K3 and K4 against their plain twins at the train cell's shapes
      (B=8, M=96, P=1024, 512x1024; bench.py's 16 octagons per image plus a
      border-clipped instance and an image with no labels): K2 bitwise, K5
@@ -33,8 +33,10 @@ Phases, one result line each; any failure raises and exits non-zero:
      at the train cell (B=8, M=96, 512x1024, the count map of phase 7's
      labels), at the full-resolution shape (B=1, M=96, P=1024, 1024x2048,
      ``fullres_batch``) and on a slab with counts but no valid sample;
-     kernel and twin times beside the bound; at 1024x2048 also the two
-     routes to (cnt, r2), K2 alone against the count map then K6, timed;
+     kernel and twin times beside the bound; at 1024x2048 also K5, K3 and
+     K4 against their twins on the count route's (cnt, r2), to phase 7's
+     tolerances (K4's autograd twin at B=1), and the two routes to
+     (cnt, r2), K2 alone against the count map then K6, timed;
  11. the full-resolution training slice through the entry point
      ``instance_segmentation_torch.tools.fullres_demo``: EfficientSeg-B3,
      bf16 with float32 master weights, 1024x2048, M=96, P=1024, Adam 2e-5,
@@ -341,6 +343,21 @@ def phase_train_kernels(dev: torch.device) -> list:
                     "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
+    cnt, r2, _ = got
+    return records + hold_loss_kernels(dev, 7, TRAIN_SHAPE, t, cnt, r2, [0, b - 1])
+
+
+def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor,
+                      r2: torch.Tensor, sub) -> list:
+    """K5, K3 and K4 against their twins at ``shape`` (B, M, P, H, W), on the
+    targets ``t`` and the maps (cnt, r2) of the route the step takes there:
+    K5 and K3 to rtol 1e-5, K4 to 1e-4 of max|g| (its autograd twin on the
+    images ``sub``). Prints a line per kernel; returns their records
+    (launches filled in by a training slice)."""
+    b, m, p, h, w = shape
+    where = f"B,M,P,H,W={shape}"
+    records = []
+
     # K5
     nk = rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w)
     npl = rasterize.rasterize_nmap_plain(t.points, t.pt_valid, t.normals, h, w)
@@ -354,9 +371,9 @@ def phase_train_kernels(dev: torch.device) -> list:
     # reads points, pt_valid and normals once, writes two f32 planes; one
     # add per channel and valid sample
     bound_ms, bound_by = bound(b * m * p * 17 + 2 * b * h * w * 4, 2 * int(t.pt_valid.sum()))
-    print(f"[7] K5 rasterize_nmap: max|kernel - twin| {err:.3g} (rtol 1e-5, atol 1e-5); "
-          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+    print(f"[{phase}] K5 rasterize_nmap {where}: max|kernel - twin| {err:.3g} (rtol 1e-5, "
+          f"atol 1e-5); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
     records.append({"name": "rasterize_nmap", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/rasterize.cu",
                     "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:163",
@@ -364,7 +381,6 @@ def phase_train_kernels(dev: torch.device) -> list:
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
     # K3
-    cnt, r2, _ = got
     xym = losses.coordinate_grid(h, w, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     planes = torch.randn((4, b, h, w), generator=gen, device=dev)
@@ -396,7 +412,7 @@ def phase_train_kernels(dev: torch.device) -> list:
     table_bytes = b * m * 8 * 4 + 256 * 4 + cntp.numel()
     bound_ms, bound_by = bound(4 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
                                pairs * tile_px * 21 + any_tiles * tile_px * n_valid * 10)
-    print(f"[7] K3 ae_terms forward: {pairs} (tile, instance) pairs visited of "
+    print(f"[{phase}] K3 ae_terms forward {where}: {pairs} (tile, instance) pairs visited of "
           f"{b * m * cntp.shape[2]}, {any_tiles} sample tiles; max|kernel - twin| {err:.3g} "
           f"(rtol 1e-5); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by})", flush=True)
@@ -406,9 +422,9 @@ def phase_train_kernels(dev: torch.device) -> list:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
-    # K4: the kernel on images 0 (border-clipped instance) and b-1 (no labels)
-    # against the twin's autograd there; through the autograd.Function too
-    sub = torch.tensor([0, b - 1], device=dev)
+    # K4: the kernel on images ``sub`` against the twin's autograd there;
+    # through the autograd.Function too
+    sub = torch.tensor(sub, device=dev)
     fields2 = [f[sub].contiguous().requires_grad_() for f in fields]
     rest2 = (r2[sub].contiguous(), cnt.view(torch.int16)[sub].view(torch.uint16),
              tab[sub].contiguous(), lut,
@@ -435,14 +451,15 @@ def phase_train_kernels(dev: torch.device) -> list:
     # valid center (argmax) and 21 for the argmax center's term
     bound_ms, bound_by = bound(8 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
                                pairs * tile_px * 51 + any_tiles * tile_px * (n_valid * 10 + 21))
-    print(f"[7] K4 ae_terms backward (images 0 and {b - 1}): max|kernel - twin autograd| "
-          f"{err:.3g} (<= 1e-4 max|g|), autograd.Function equal; kernel {ms:.4f} ms at B={b}, "
-          f"twin backward {plain_ms:.4f} ms at B=2, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+    print(f"[{phase}] K4 ae_terms backward {where} (images {sub.tolist()}): max|kernel - twin "
+          f"autograd| {err:.3g} (<= 1e-4 max|g|), autograd.Function equal; kernel {ms:.4f} ms "
+          f"at B={b}, twin backward {plain_ms:.4f} ms at B={len(sub)}, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
     records.append({"name": "ae_terms_bwd", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/ae_terms.cu",
                     "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:366",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "plain_batch": 2,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "plain_batch": len(sub),
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     return records
 
@@ -531,7 +548,8 @@ def phase_train_parity(dev: torch.device) -> None:
 
 def phase_minr2(dev: torch.device) -> dict:
     """K6 against its twin, bitwise, at the train cell and at full resolution,
-    and on a slab with counts but has == 0; at full resolution the two routes
+    and on a slab with counts but has == 0; at full resolution also K5, K3
+    and K4 against their twins on the count route's maps, and the two routes
     to (cnt, r2) timed. Returns K6's record (launches filled in by phase 11)."""
     cases = []
     b, m, p, h, w = TRAIN_SHAPE
@@ -566,7 +584,10 @@ def phase_minr2(dev: torch.device) -> dict:
                   "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
-    # the full-resolution case goes on: a live slab marked as having no sample
+    # the full-resolution case goes on: K5, K3 and K4 on its count-route maps
+    hold_loss_kernels(dev, 10, FULLRES_SHAPE, t, cnt, got, [0])
+
+    # and a live slab marked as having no sample
     slot = int(has[0].nonzero()[0])
     check(bool(cnt.view(torch.int16)[0, slot].any()), "K6: the chosen slab holds no counts")
     has_off = has.clone()

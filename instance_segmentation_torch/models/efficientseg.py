@@ -43,7 +43,7 @@ from instance_segmentation_torch.models.efficientnet import (
     EfficientNetFeatures, feature_channels,
 )
 from instance_segmentation_torch.models.heads import Classifier, Regressor
-from instance_segmentation_torch.models.layers import cast_convs, running_stats_frozen
+from instance_segmentation_torch.models.layers import cast_convs
 from instance_segmentation_torch.models.unet_decoder import UNetDecoder
 
 # Per-compound-coefficient scaling tables (same as the reference).
@@ -89,28 +89,34 @@ class EfficientSegConfig:
 
 
 @contextlib.contextmanager
-def _as_in_forward(generator: Optional[torch.Generator], state: Optional[torch.Tensor]):
-    """The recompute of a checkpointed segment: running statistics frozen and
-    ``generator`` (if any) rewound to ``state``, its state when the forward
-    ran the segment; the generator's own state is restored afterwards."""
+def _as_in_forward(module: nn.Module, generator: Optional[torch.Generator],
+                   state: Optional[torch.Tensor]):
+    """The recompute of a checkpointed segment: ``generator`` (if any) rewound
+    to ``state``, its state when the forward ran the segment, and restored
+    afterwards; ``module``'s buffers (the batch-norm running statistics, which
+    the forward already updated once) put back as they were before the
+    recompute, as flax's remat keeps only the forward's update."""
+    buffers = [(b, b.clone()) for b in module.buffers()]
     now = None if generator is None else generator.get_state()
     if generator is not None:
         generator.set_state(state)
     try:
-        with running_stats_frozen():
-            yield
+        yield
     finally:
+        with torch.no_grad():
+            for b, saved in buffers:
+                b.copy_(saved)
         if generator is not None:
             generator.set_state(now)
 
 
-def _remat(fn, *args, generator: Optional[torch.Generator] = None):
-    """``fn(*args)`` under non-reentrant activation checkpointing, its
+def _remat(module: nn.Module, *args, generator: Optional[torch.Generator] = None):
+    """``module(*args)`` under non-reentrant activation checkpointing, its
     recompute run as ``_as_in_forward`` says."""
     state = None if generator is None else generator.get_state()
-    return checkpoint(fn, *args, use_reentrant=False,
+    return checkpoint(module, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          _as_in_forward(generator, state)))
+                                          _as_in_forward(module, generator, state)))
 
 
 class EfficientSeg(nn.Module):

@@ -20,7 +20,6 @@ running statistics in eval.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -112,24 +111,6 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-_running_stats_frozen = False
-
-
-@contextlib.contextmanager
-def running_stats_frozen():
-    """Inside it, batch norm in training still normalizes with the batch
-    statistics but leaves its running statistics alone: the recompute of an
-    activation-checkpointed segment, whose forward already updated them once
-    (flax's remat, too, keeps only the forward's update)."""
-    global _running_stats_frozen
-    before = _running_stats_frozen
-    _running_stats_frozen = True
-    try:
-        yield
-    finally:
-        _running_stats_frozen = before
-
-
 class BatchNorm(nn.Module):
     """Batch norm as ``x * scale_eff + shift``, the per-channel coefficients
     formed in float32 and cast to the activation dtype.
@@ -158,11 +139,10 @@ class BatchNorm(nn.Module):
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
-            if not _running_stats_frozen:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         scale = self.weight * torch.rsqrt(var + self.eps)

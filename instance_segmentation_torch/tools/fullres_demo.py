@@ -24,7 +24,7 @@ import argparse
 import json
 import math
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -53,21 +53,30 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def build(args: argparse.Namespace) -> Tuple[Trainer, tuple]:
+    """The trainer and the synthetic batch (frames, polys, n_verts, cls_ids)
+    that ``args`` describe."""
+    dev = torch.device(args.device) if args.device else require_cuda()
+    h, w = args.hw
+    cfg = EfficientSegConfig(num_classes=8, compound_coef=args.compound,
+                             compute_dtype=torch.bfloat16, remat=args.remat)
+    loss_cfg = LossConfig(ae_window=tuple(args.ae_window) if args.ae_window else None)
+    trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), loss_cfg,
+                      max_points=args.max_points, lr=2e-5, device=dev)
+    frames, labels = fullres_batch(args.batch, args.max_instances, h, w, n_real=args.n_real)
+    return trainer, (frames, *labels)
+
+
 def run(args: argparse.Namespace) -> dict:
     """Build the trainer, take the steps and return the result record.
     Raises if a loss of any step is not finite."""
     dev = torch.device(args.device) if args.device else require_cuda()
     cuda = dev.type == "cuda"
     h, w = args.hw
-    cfg = EfficientSegConfig(num_classes=8, compound_coef=args.compound,
-                             compute_dtype=torch.bfloat16, remat=args.remat)
-    loss_cfg = LossConfig(ae_window=tuple(args.ae_window) if args.ae_window else None)
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), loss_cfg,
-                      max_points=args.max_points, lr=2e-5, device=dev)
-    frames, labels = fullres_batch(args.batch, args.max_instances, h, w, n_real=args.n_real)
+    trainer, batch = build(args)
 
     def checked(stats) -> dict:
         values = {k: float(v) for k, v in stats.items()}
@@ -75,11 +84,11 @@ def run(args: argparse.Namespace) -> dict:
             raise FloatingPointError(f"a full-resolution loss is not finite: {values}")
         return values
 
-    checked(trainer.step(frames, *labels))
+    checked(trainer.step(*batch))
     if cuda:
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    steps = [trainer.step(frames, *labels) for _ in range(args.iters)]
+    steps = [trainer.step(*batch) for _ in range(args.iters)]
     if cuda:
         torch.cuda.synchronize(dev)
     step_ms = (time.perf_counter() - t0) / args.iters * 1e3

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one CUDA card.
 
-    python3 profile_train.py [--batch 8] [--steps 5] [--fullres] [--remat]
-                             [--out build/profile_train.json]
+    python3 profile_train.py [--batch 8] [--steps 5] [--out build/profile_train.json]
+                             [--fullres [FULLRES_DEMO_FLAGS ...]]
 
 The train cell of ``chip_smoke.py`` phase 8: EfficientSeg-B3, bf16 compute
 with float32 master weights, 512x1024, M=96, P=1024, Adam 2e-5, seeded
-untrained weights, bench.py's synthetic batch. ``--fullres`` takes the
-full-resolution step of ``chip_smoke.py`` phase 11 instead: 1024x2048 and
-the synthetic batch of ``tools/fullres_demo.py`` (the count-map route with
-K6); ``--remat`` turns on activation checkpointing. After two warm-up steps it
+untrained weights, bench.py's synthetic batch. ``--fullres`` takes instead
+the trainer and batch of ``instance_segmentation_torch.tools.fullres_demo``
+(the full-resolution step of ``chip_smoke.py`` phase 11), built from the
+flags that follow it, e.g. ``--fullres --batch 4 --remat``. After two warm-up steps it
 times ``--steps`` steps stage by stage (targets, forward, loss, backward,
 optimizer; host clock, the card synchronised after each stage), then traces
 two steps with ``torch.profiler``: kernel time and launches per step, the
@@ -33,7 +33,8 @@ from instance_segmentation_torch.device import nvidia_smi_name_power, require_cu
 from instance_segmentation_torch.losses import compose_loss
 from instance_segmentation_torch.models import EfficientSegConfig
 from instance_segmentation_torch.ops.targets import generate_targets
-from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
+from instance_segmentation_torch.tools import fullres_demo
+from instance_segmentation_torch.training.synthetic import bench_train_batch
 from instance_segmentation_torch.training.train_step import Trainer
 
 M, P = 96, 1024
@@ -61,7 +62,8 @@ def staged_step(trainer: Trainer, batch) -> dict:
     images, polys, n_verts, cls_ids = trainer._as_batch(*batch)
     mark("upload")
     h, w = trainer.input_hw
-    targets = generate_targets(polys, n_verts, cls_ids, h, w, max_points=P, dense_kp=False)
+    targets = generate_targets(polys, n_verts, cls_ids, h, w, max_points=trainer.max_points,
+                               dense_kp=False)
     mark("targets")
     trainer.optimizer.zero_grad(set_to_none=True)
     outputs = trainer.model(images)
@@ -79,20 +81,23 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--fullres", action="store_true",
-                    help="1024x2048 with the full-resolution demo's batch")
-    ap.add_argument("--remat", action="store_true")
     ap.add_argument("--out", default="build/profile_train.json")
+    ap.add_argument("--fullres", nargs=argparse.REMAINDER, default=None,
+                    help="the full-resolution demo's trainer and batch, from the flags after it")
     args = ap.parse_args()
     dev = require_cuda()
     smi = nvidia_smi_name_power()
-    h, w = (1024, 2048) if args.fullres else (512, 1024)
-    cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16,
-                             remat=args.remat)
-    trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=P, device=dev)
-    make_batch = fullres_batch if args.fullres else bench_train_batch
-    frames, labels = make_batch(args.batch, M, h, w)
-    batch = (frames, *labels)
+    if args.fullres is not None:
+        trainer, batch = fullres_demo.build(fullres_demo.parse_args(args.fullres))
+    else:
+        h, w = 512, 1024
+        cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
+        trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=P,
+                          device=dev)
+        frames, labels = bench_train_batch(args.batch, M, h, w)
+        batch = (frames, *labels)
+    h, w = trainer.input_hw
+    n, remat = len(batch[0]), trainer.cfg.remat
     for _ in range(2):
         trainer.step(*batch)
     torch.cuda.synchronize()
@@ -100,8 +105,8 @@ def main() -> None:
     staged = [staged_step(trainer, batch) for _ in range(args.steps)]
     stages = {k: float(np.median([s[k] for s in staged])) for k in staged[0]}
     step_ms = float(np.median([sum(s.values()) for s in staged]))
-    print(f"B3 {h}x{w} b{args.batch} remat {args.remat}: stages (median ms of {args.steps}, "
-          f"synchronised): "
+    print(f"B{trainer.cfg.compound_coef} {h}x{w} b{n} remat {remat} ae_window "
+          f"{trainer.loss_cfg.ae_window}: stages (median ms of {args.steps}, synchronised): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f"; step {step_ms:.3f} ms; [{smi}]", flush=True)
 
@@ -128,7 +133,8 @@ def main() -> None:
         print(f"  {e.self_device_time_total / 2e3:9.3f} ms/step  {e.count / 2:7.1f} launches/step  "
               f"{e.key[:100]}", flush=True)
 
-    record = {"device": smi, "batch": args.batch, "hw": [h, w], "remat": args.remat,
+    record = {"device": smi, "batch": n, "hw": [h, w], "remat": remat,
+              "ae_window": trainer.loss_cfg.ae_window,
               "stages_ms": stages, "step_ms": step_ms,
               "traced_wall_ms_per_step": wall_ms / 2, "kernel_ms_per_step": kernel_ms,
               "busy_share": kernel_ms / step_ms, "stage_spans_ms": spans,
