@@ -6,7 +6,8 @@
 Phases, one result line each; any failure raises and exits non-zero:
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build kernel K1 (``csrc/affinity.cu``) from the sources in the checkout
-     (the other kernels' ``nvcc`` runs at the same time);
+     (the other kernels' ``nvcc`` runs at the same time), with what
+     ``nvcc -Xptxas -v`` says of its registers, spills and shared memory;
   3. K1 against its plain PyTorch version on the card at main-path shapes
      (B=8, K=20000, D=96), with keypoints in no box, invalid detections and
      duplicate centers (exact ties); kernel and plain times (CUDA events);
@@ -15,12 +16,16 @@ Phases, one result line each; any failure raises and exits non-zero:
   5. the serving slice: an EfficientSeg-B3 ``Predictor`` in bf16 at 512x1024
      (frames of a 1024x2048 image at scale 2), seeded untrained weights,
      default decode, answering 3 requests at batch 1 and 3 at batch 8;
-  6. build kernels K2-K6 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``);
+  6. build kernels K2-K6 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``), one
+     ``-Xptxas -v`` line per kernel;
   7. K2, K5, K3 and K4 against their plain twins at the train cell's shapes
      (B=8, M=96, P=1024, 512x1024; bench.py's 16 octagons per image plus a
      border-clipped instance and an image with no labels): K2 bitwise, K5
-     and K3 to rtol 1e-5, K4 to 1e-4 of max|g| (its autograd twin at B=2);
-     kernel and twin times (CUDA events) beside each kernel's bound;
+     bitwise against its twin on the CPU and across two launches (and to
+     rtol 1e-5 against the twin on the card), K3 to rtol 1e-5, K4 to 1e-4
+     of max|g| (its autograd twin at B=2); wrapper and twin times (CUDA
+     events) beside each kernel's bound, and K5's yardstick, one
+     ``index_add_`` of the masked normals;
   8. the training slice: a ``Trainer`` with EfficientSeg-B3, bf16 compute and
      float32 master weights, 512x1024, batch 8, M=96, P=1024, Adam 2e-5,
      seeded untrained weights: 1 warm-up step, then 5 timed steps through
@@ -45,6 +50,11 @@ Phases, one result line each; any failure raises and exits non-zero:
      with finite losses and each configuration's launch counts: K6, K3, K4
      and K5 once a step and K2 never on the count-map route; K5 alone on
      the windowed one.
+
+Beside every timed wrapper (phases 3, 7 and 10) a ``torch.profiler``
+window over the same number of calls gives the kernel's own device time
+per call and how many device kernels one call launches, PyTorch's
+included.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after: K1's from the serving slice, K2-K5's from the training slice, K6's
@@ -149,7 +159,10 @@ def affinity_inputs(b: int, k: int, d: int, seed: int = 0):
 
 
 def cuda_median_ms(fn, iters: int = 20) -> float:
-    """Median device time of ``fn`` over ``iters`` runs (CUDA events)."""
+    """Median over ``iters`` calls of the time between CUDA events recorded
+    just before and just after one call of ``fn``: the device time of its
+    kernels plus the host time before its first launch (the card is idle at
+    the first event)."""
     fn()
     times = []
     for _ in range(iters):
@@ -160,6 +173,67 @@ def cuda_median_ms(fn, iters: int = 20) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def kernel_alone(fn, own, queued: float, iters: int = 20, pads=(0.05, 0.5, 2.0)):
+    """(device ms per call of the kernels whose names contain one of the
+    strings ``own``, device activities per call, of which own): a
+    ``torch.profiler`` window over ``iters`` calls of ``fn``, after one
+    warm-up and two calls inside the window whose events are dropped, padded
+    at both ends with host sleep. Device activities are every kernel,
+    PyTorch's included, and every memset and copy. Late in a long process
+    the profiler can lose or truncate a window's device events; a window
+    whose device time per call falls below half of ``queued`` (``queued_ms``
+    of ``fn``) is taken again with the next, longer padding of ``pads`` (in
+    seconds), and the time is None if none holds."""
+    fn()
+    torch.cuda.synchronize()
+    calls = iters + 2
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    per_call = own_per_call = None
+    for pad in pads:
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(pad)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        device = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if not device:
+            continue
+        per_call = round(len(device) / calls)
+        own_per_call = round(sum(any(n in e.name for n in own) for e in device) / calls)
+        last = device[len(device) - iters * per_call:]
+        if sum(e.time_range.elapsed_us() for e in last) / 1e3 / iters >= 0.5 * queued:
+            mine = sum(e.time_range.elapsed_us() for e in last if any(n in e.name for n in own))
+            return mine / 1e3 / iters, per_call, own_per_call
+    return None, per_call, own_per_call
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time per call of everything ``fn`` launches, with no host gap:
+    the ``iters`` calls are queued behind a 20 ms device wait and timed
+    between two CUDA events recorded after the wait and after the calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def alone_text(alone, queued: float) -> str:
+    ms, per_call, own = alone
+    where = (f"kernel alone {ms:.4f} ms" if ms is not None else
+             "kernel alone not measured (no profiler window held its device events)")
+    return (f"{where}, {per_call} device kernels per call ({own} the port's own), "
+            f"all of them queued {queued:.4f} ms per call")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -201,11 +275,14 @@ def phase_affinity(dev: torch.device) -> dict:
     in_no_box = int((~contained.any(-1)).sum())
     ms = cuda_median_ms(lambda: affinity.affinity_assign(*inputs))
     plain_ms = cuda_median_ms(lambda: affinity.affinity_assign_plain(*inputs))
+    queued = queued_ms(lambda: affinity.affinity_assign(*inputs))
+    alone = kernel_alone(lambda: affinity.affinity_assign(*inputs), ("affinity_kernel",),
+                         queued)
     print(f"[3] K1 vs plain B,K,D={AFFINITY_SHAPE}: assign mismatches {int(mismatch.sum())} "
           f"(near ties {int(near.sum())}, exact ties {int(exact_tie.sum())}; all agree "
           f"outside near ties), keypoints in no box {in_no_box}, best max|err| {max_abs:.3g}"
-          f" (rtol 1e-6); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)",
-          flush=True)
+          f" (rtol 1e-6); wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); "
+          f"{alone_text(alone, queued)}", flush=True)
     b, k, d = AFFINITY_SHAPE
     # reads row/col, embedding and sigma per keypoint and the center table,
     # writes assign and best; per (keypoint, center): 2 sub, 4 mul, 1 add,
@@ -215,7 +292,8 @@ def phase_affinity(dev: torch.device) -> dict:
             "source": "instance_segmentation_torch/csrc/affinity.cu",
             "replaces": "instance_segmentation_tpu/ops/pallas_kernels.py:77",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "kernel_ms": alone[0],
+            "kernels_per_call": alone[1]}
 
 
 def phase_decode(dev: torch.device) -> None:
@@ -304,8 +382,8 @@ def visited_tiles(tab: torch.Tensor, cntp: torch.Tensor, h: int, w: int):
     win = ((t[:, :, ae_terms.VALID] > 0) & (t[:, :, ae_terms.LT0] < r0 + ae_terms.TILE_H)
            & (t[:, :, ae_terms.RB0] > r0) & (t[:, :, ae_terms.LT1] < c0 + ae_terms.TILE_W)
            & (t[:, :, ae_terms.RB1] > c0))
-    hit = win.flatten(2) | (cntp > 0)
-    return int(hit.sum()), int((cntp > 0).any(dim=1).sum())
+    present = ae_terms.presence_dense(cntp, tab.shape[1])
+    return int((win.flatten(2) | present).sum()), int(present.any(dim=1).sum())
 
 
 def phase_train_kernels(dev: torch.device) -> list:
@@ -330,18 +408,22 @@ def phase_train_kernels(dev: torch.device) -> list:
     check(err == 0, f"K2 differs from its twin by {err}")
     ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
     plain_ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w))
+    queued = queued_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
+    alone = kernel_alone(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w),
+                         ("cnt_r2_kernel",), queued)
     # reads the point list once, writes cnt (2 B), r2 (1 B) and the union;
     # its work is integer counting and min, no float32 operations
     bound_ms, bound_by = bound(b * m * p * 9 + b * m * h * w * 3 + b * h * w, 0)
     print(f"[7] K2 rasterize_cnt_r2 B,M,P,H,W={TRAIN_SHAPE} ({live} of {b * m} slots live, "
           f"{int(t.pt_valid.sum())} samples): cnt, r2, union bitwise equal to the twin; "
-          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
+          f"wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{alone_text(alone, queued)}", flush=True)
     records.append({"name": "rasterize_cnt_r2", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/rasterize.cu",
                     "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:222",
                     "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
 
     cnt, r2, _ = got
     return records + hold_loss_kernels(dev, 7, TRAIN_SHAPE, t, cnt, r2, [0, b - 1])
@@ -358,27 +440,52 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     where = f"B,M,P,H,W={shape}"
     records = []
 
-    # K5
+    # K5: to rtol 1e-5 against the twin on the card, bitwise against the twin
+    # on the CPU (both sum each pixel in (instance, sample) order) and
+    # between two launches
     nk = rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w)
+    again = rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w)
     npl = rasterize.rasterize_nmap_plain(t.points, t.pt_valid, t.normals, h, w)
+    cpu = rasterize.rasterize_nmap_plain(t.points.cpu(), t.pt_valid.cpu(), t.normals.cpu(), h, w)
     torch.cuda.synchronize()
     err = max(float((a - c).abs().max()) for a, c in zip(nk, npl))
     check(all(torch.allclose(a, c, rtol=1e-5, atol=1e-5) for a, c in zip(nk, npl)),
           f"K5 differs from its twin by {err}")
+
+    def bits(x):
+        return x.view(torch.int32).cpu()
+    check(all(torch.equal(bits(a), bits(c)) for a, c in zip(nk, cpu)),
+          "K5 differs from its twin on the CPU in some bit")
+    check(all(torch.equal(bits(a), bits(c)) for a, c in zip(nk, again)),
+          "two launches of K5 differ in some bit")
     ms = cuda_median_ms(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w))
     plain_ms = cuda_median_ms(lambda: rasterize.rasterize_nmap_plain(t.points, t.pt_valid,
                                                                      t.normals, h, w))
+    queued = queued_ms(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w))
+    alone = kernel_alone(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w),
+                         ("nmap_",), queued)
+    # the nearest single PyTorch call: one index_add_ of the masked normals
+    # [N, 2] into a [B*H*W, 2] buffer at prebuilt flat indices (building the
+    # indices and zeroing the buffer are left out of its time)
+    flat = (torch.arange(b, device=dev).view(b, 1, 1) * (h * w)
+            + t.points[..., 0].clamp(0, h - 1).long() * w
+            + t.points[..., 1].clamp(0, w - 1).long())[t.pt_valid]
+    nrm = t.normals[t.pt_valid].contiguous()
+    buf = torch.zeros((b * h * w, 2), dtype=torch.float32, device=dev)
+    library_ms = cuda_median_ms(lambda: buf.index_add_(0, flat, nrm))
     # reads points, pt_valid and normals once, writes two f32 planes; one
     # add per channel and valid sample
     bound_ms, bound_by = bound(b * m * p * 17 + 2 * b * h * w * 4, 2 * int(t.pt_valid.sum()))
     print(f"[{phase}] K5 rasterize_nmap {where}: max|kernel - twin| {err:.3g} (rtol 1e-5, "
-          f"atol 1e-5); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
+          f"atol 1e-5), bitwise equal to the CPU twin and across two launches; wrapper "
+          f"{ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{alone_text(alone, queued)}; index_add_ {library_ms:.4f} ms", flush=True)
     records.append({"name": "rasterize_nmap", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/rasterize.cu",
                     "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:163",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
 
     # K3
     xym = losses.coordinate_grid(h, w, dev)
@@ -402,6 +509,9 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     ms = cuda_median_ms(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
     with torch.no_grad():
         plain_ms = cuda_median_ms(lambda: ae_terms.ae_terms_plain(*fields, *rest))
+    queued = queued_ms(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
+    alone = kernel_alone(lambda: ae_terms.ae_terms_fwd(*fields, *rest), ("ae_fwd", "ae_reduce"),
+                         queued)
     pairs, any_tiles = visited_tiles(tab, cntp, h, w)
     tile_px = ae_terms.TILE_H * ae_terms.TILE_W
     n_valid = int(t.inst_valid.sum()) // b
@@ -409,18 +519,19 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     # instance) slab; per visited pixel ~21 operations (affinity 9, clip 2,
     # neg term 6, pull 4), per pixel of a sample tile and valid center 10
     # (dmax)
-    table_bytes = b * m * 8 * 4 + 256 * 4 + cntp.numel()
+    table_bytes = b * m * 8 * 4 + 256 * 4 + cntp.numel() * 4
     bound_ms, bound_by = bound(4 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
                                pairs * tile_px * 21 + any_tiles * tile_px * n_valid * 10)
     print(f"[{phase}] K3 ae_terms forward {where}: {pairs} (tile, instance) pairs visited of "
-          f"{b * m * cntp.shape[2]}, {any_tiles} sample tiles; max|kernel - twin| {err:.3g} "
-          f"(rtol 1e-5); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
+          f"{b * m * cntp.shape[1]}, {any_tiles} sample tiles; max|kernel - twin| {err:.3g} "
+          f"(rtol 1e-5); wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); {alone_text(alone, queued)}", flush=True)
     records.append({"name": "ae_terms_fwd", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/ae_terms.cu",
                     "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:325",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
 
     # K4: the kernel on images ``sub`` against the twin's autograd there;
     # through the autograd.Function too
@@ -444,23 +555,27 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
               f"K4 d{name} differs from its twin by {float((a - c).abs().max())}")
         check(torch.equal(a, f), f"K4 d{name} through the autograd.Function differs")
     full = [f.detach() for f in fields]
-    ms = cuda_median_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *wts))
+    cot = wts.unbind(0)
+    ms = cuda_median_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
     plain_ms = cuda_median_ms(lambda: torch.autograd.grad(objective, fields2, retain_graph=True))
+    queued = queued_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
+    alone = kernel_alone(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot), ("ae_bwd",), queued)
     # reads the 4 fields, writes 4 gradient planes, 3 B per visited slab
     # pixel; per visited pixel ~51 operations, per sample-tile pixel 10 per
     # valid center (argmax) and 21 for the argmax center's term
     bound_ms, bound_by = bound(8 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
                                pairs * tile_px * 51 + any_tiles * tile_px * (n_valid * 10 + 21))
     print(f"[{phase}] K4 ae_terms backward {where} (images {sub.tolist()}): max|kernel - twin "
-          f"autograd| {err:.3g} (<= 1e-4 max|g|), autograd.Function equal; kernel {ms:.4f} ms "
+          f"autograd| {err:.3g} (<= 1e-4 max|g|), autograd.Function equal; wrapper {ms:.4f} ms "
           f"at B={b}, twin backward {plain_ms:.4f} ms at B={len(sub)}, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
+          f"({bound_by}); {alone_text(alone, queued)}", flush=True)
     records.append({"name": "ae_terms_bwd", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/ae_terms.cu",
                     "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:366",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "plain_batch": len(sub),
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
     return records
 
 
@@ -569,20 +684,23 @@ def phase_minr2(dev: torch.device) -> dict:
         check(got.dtype == torch.uint8 and err == 0, f"K6 differs from its twin by {err} ({name})")
         ms = cuda_median_ms(lambda: minr2.minr2_from_cnt(cnt, has))
         plain_ms = cuda_median_ms(lambda: minr2.minr2_from_cnt_plain(cnt, has))
+        queued = queued_ms(lambda: minr2.minr2_from_cnt(cnt, has))
+        alone = kernel_alone(lambda: minr2.minr2_from_cnt(cnt, has), ("minr2_kernel",), queued)
         live = int(has.sum())
         # reads the live slabs' counts (2 B/px) and has, writes r2 for every
         # slab (1 B/px); its work is integer min, no float32 operations
         bound_ms, bound_by = bound(2 * live * h * w + b * m * h * w + b * m, 0)
         print(f"[10] K6 minr2_from_cnt {name} B,M,P,H,W={(b, m, p, h, w)} ({live} of {b * m} "
-              f"slabs live): bitwise equal to the twin; kernel {ms:.4f} ms, twin "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median of 20)",
-              flush=True)
+              f"slabs live): bitwise equal to the twin; wrapper {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median of 20); "
+              f"{alone_text(alone, queued)}", flush=True)
         # the record keeps the last case, the full-resolution shape of phase 11
         record = {"name": "minr2_from_cnt", "route": "cuda",
                   "source": "instance_segmentation_torch/csrc/rasterize.cu",
                   "replaces": "instance_segmentation_tpu/losses/minr2_pallas.py:90",
                   "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                  "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]}
 
     # the full-resolution case goes on: K5, K3 and K4 on its count-route maps
     hold_loss_kernels(dev, 10, FULLRES_SHAPE, t, cnt, got, [0])
@@ -659,7 +777,7 @@ def main() -> None:
     lib, seconds = built["affinity"]
     build.load("affinity")
     print(f"[2] built K1 {lib.relative_to(build.BUILD_DIR.parents[1])} in "
-          f"{seconds:.2f} s", flush=True)
+          f"{seconds:.2f} s; ptxas: {'; '.join(build.ptxas_usage('affinity'))}", flush=True)
 
     record = phase_affinity(dev)
     phase_decode(dev)
@@ -670,6 +788,9 @@ def main() -> None:
     print("[6] built K2-K6 " + ", ".join(
         f"{built[n][0].relative_to(build.BUILD_DIR.parents[1])} in {built[n][1]:.2f} s"
         for n in KERNELS[1:]) + " (all nvcc runs started together)", flush=True)
+    for kernel in KERNELS[1:]:
+        for line in build.ptxas_usage(kernel):
+            print(f"[6] ptxas {kernel}.cu {line}", flush=True)
     records = phase_train_kernels(dev)
     counts = phase_train_slice(dev, smi)
     for r in records:

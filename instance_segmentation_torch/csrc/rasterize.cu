@@ -8,8 +8,10 @@
 // image the u8 union over instances of cnt > 0. Bit-exact.
 //
 // K5 replaces rasterize_pallas.py rasterize_nmap (_make_nmap_kernel): per
-// image, the sum of the valid samples' inward normals at their pixels, the
-// tangent loss's target field (two f32 planes).
+// image, the sum of the valid samples' inward normals at their clipped
+// pixels, the tangent loss's target field (two f32 planes), each pixel's sum
+// taken in (instance, sample) order, so equal bit for bit to a sequential
+// float32 scatter-add (and to PyTorch's CPU index_add_).
 //
 // K6 replaces instance_segmentation_tpu/losses/minr2_pallas.py
 // minr2_from_cnt (_make_kernel, _axis_min): the same u8 min-r2 map, read
@@ -18,8 +20,10 @@
 // set to 200 whatever their counts hold. Bit-exact. K2 and K6 share the
 // separable min (column_min_pass, row_min).
 //
-// Points arrive pre-clipped: valid samples lie inside the image, invalid
-// ones are encoded out of range (y = H, x = W) and are never counted.
+// K2's points arrive pre-clipped: valid samples lie inside the image,
+// invalid ones are encoded out of range (y = H, x = W) and are never
+// counted. K5 takes the point list, its validity bytes and the normals as
+// the loss holds them and clips itself.
 //
 // What bounds them on the card:
 //  * K2 writes B*M*H*W*3 bytes plus the union (1.2 GB at B=8, M=96,
@@ -29,14 +33,12 @@
 //    counts its points in shared memory with shared atomics (integer, so
 //    exact in any order), then runs the separable column/row min there; the
 //    union stays in registers across the instance loop.
-//  * K5 reads the point list and writes 2*B*H*W floats (~34 MB): bytes and
-//    launch latency. A block owns a band of rows of one image and keeps the
-//    band's two planes in shared memory. It walks only the instances whose
-//    sample rows reach the band; their points in the band are gathered in
-//    (instance, point) order into a shared list, and each thread owns a
-//    fixed set of columns and adds the listed normals that land there, in
-//    list order. No float atomics: the sums are deterministic, and each
-//    pixel's sum is taken in the order a sequential scatter-add takes it.
+//  * K5 reads the point list once and writes 2*B*H*W floats (~34 MB at
+//    B=8, 512x1024): bytes. Two launches from one C call, no float atomics.
+//    Pass 1 bins the valid samples by (image, band of 4 rows) with a stable
+//    counting sort local to each warp's chunk of 512 points; pass 2 gives
+//    each block one band, zero-fills it in shared memory, adds the band's
+//    records chunk by chunk in list order and writes it with 16-byte stores.
 //  * K6 reads the live slabs' counts (2 B/px) and writes r2 (1 B/px) for
 //    every slab: bytes. One block per (16 x 128 tile, image * instance). A
 //    slab whose instance has no valid sample (most slots are padding) reads
@@ -213,73 +215,230 @@ minr2_kernel(const uint16_t* __restrict__ cnt,   // [B * M, H, W]
 }
 
 // ---- K5 ---------------------------------------------------------------------
-constexpr int kBandRows = 4;                     // rows of one image per block
+constexpr int kBandRows = 4;                     // rows of one image per band
+constexpr int kWarps = kThreads / 32;
+constexpr int kSteps = 16;                       // 32-point steps of one chunk
+constexpr int kChunk = 32 * kSteps;              // points of one chunk (one warp's)
+constexpr int kListCap = 512;                    // band records staged at once
+constexpr unsigned kFull = 0xffffffffu;
 
+// Pass 1: each warp reads one chunk of kChunk consecutive points of an image
+// in its (instance, sample) order, once, and bins its valid samples by band
+// with a stable counting sort local to the chunk: __match_any_sync ranks the
+// samples of one band within a 32-point step in lane order, a per-warp
+// shared histogram carries the ranks across steps. It writes the chunk's
+// records (pixel within the band, n0, n1) grouped by band, in point order
+// within a band, and the running end of each band's group.
 __global__ void __launch_bounds__(kThreads)
-nmap_kernel(const int32_t* __restrict__ ys,      // [B, M, P]
-            const int32_t* __restrict__ xs,      // [B, M, P]
-            const float* __restrict__ n0,        // [B, M, P]
-            const float* __restrict__ n1,        // [B, M, P]
-            const int32_t* __restrict__ rows,    // [B, M, 2]: first, last sample row
-            int M, int P, int H, int W,
-            float* __restrict__ out0,            // [B, H, W]
-            float* __restrict__ out1) {          // [B, H, W]
-  extern __shared__ float band[];                // [2][kBandRows][W]
-  __shared__ int list_pix[kThreads];             // row * W + col within the band
-  __shared__ float list_n0[kThreads], list_n1[kThreads];
-  __shared__ int warp_count[kThreads / 32];
-  const int b = blockIdx.y, r0 = blockIdx.x * kBandRows;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rows_here = min(kBandRows, H - r0);
-  // each thread owns the band pixels whose column is tid mod kThreads
-  for (int r = 0; r < rows_here; ++r)
-    for (int c = tid; c < W; c += kThreads) {
-      band[r * W + c] = 0.0f;
-      band[(kBandRows + r) * W + c] = 0.0f;
+nmap_bin_kernel(const int2* __restrict__ pts,        // [B, MP]: (row, col)
+                const uint8_t* __restrict__ valid,   // [B, MP]
+                const float2* __restrict__ nrm,      // [B, MP]
+                int MP, int H, int W, int nbands, int nchunks,
+                int4* __restrict__ recs,             // [B, MP]: chunk c's at c * kChunk
+                int* __restrict__ ends) {            // [B, nchunks, nbands]
+  extern __shared__ int s_hist[];                    // [kWarps][nbands]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int chunk = blockIdx.x * kWarps + warp;
+  if (chunk >= nchunks) return;                      // no block-wide sync follows
+  int* hist = s_hist + warp * nbands;
+  for (int i = lane; i < nbands; i += 32) hist[i] = 0;
+  const int first = chunk * kChunk;
+  const size_t base = (size_t)blockIdx.y * MP + first;
+  int2 p[kSteps];
+  bool ok[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {                 // all loads first
+    const int i = s * 32 + lane;
+    ok[s] = first + i < MP && valid[base + i];
+    p[s] = ok[s] ? pts[base + i] : make_int2(0, 0);
+  }
+  __syncwarp();                                      // the zeroed histogram
+  int band[kSteps], pix[kSteps], rank[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int y = min(max(p[s].x, 0), H - 1), x = min(max(p[s].y, 0), W - 1);
+    band[s] = ok[s] ? y / kBandRows : -1;
+    pix[s] = (y % kBandRows) * W + x;
+    const unsigned grp = __match_any_sync(kFull, band[s]);
+    const int leader = __ffs(grp) - 1;
+    int before = 0;
+    if (ok[s] && lane == leader) {
+      before = hist[band[s]];
+      hist[band[s]] = before + __popc(grp);
     }
-  for (int m = 0; m < M; ++m) {
-    const int2 span = reinterpret_cast<const int2*>(rows)[(size_t)b * M + m];
-    if (span.y < r0 || span.x >= r0 + rows_here) continue;   // uniform across the block
-    const size_t pbase = ((size_t)b * M + m) * P;
-    for (int p0 = 0; p0 < P; p0 += kThreads) {
-      const int p = p0 + tid;
-      int py = H, px = W;
-      if (p < P) {
-        py = ys[pbase + p];
-        px = xs[pbase + p];
-      }
-      const bool in = py >= r0 && py < r0 + rows_here && px < W;
-      const unsigned ballot = __ballot_sync(0xffffffffu, in);
-      if (lane == 0) warp_count[warp] = __popc(ballot);
-      __syncthreads();
-      int base = 0, total = 0;
-      for (int v = 0; v < kThreads / 32; ++v) {
-        if (v < warp) base += warp_count[v];
-        total += warp_count[v];
-      }
-      if (in) {
-        const int slot = base + __popc(ballot & ((1u << lane) - 1u));
-        list_pix[slot] = (py - r0) * W + px;
-        list_n0[slot] = n0[pbase + p];
-        list_n1[slot] = n1[pbase + p];
-      }
-      __syncthreads();
-      for (int e = 0; e < total; ++e) {
-        const int pix = list_pix[e];
-        if (pix % W % kThreads == tid) {
-          band[pix] += list_n0[e];
-          band[kBandRows * W + pix] += list_n1[e];
-        }
-      }
-      __syncthreads();                           // before the list is rebuilt
+    rank[s] = __shfl_sync(kFull, before, leader) + __popc(grp & ((1u << lane) - 1u));
+    __syncwarp();
+  }
+  // the bands' starts within the chunk: an exclusive scan of the histogram
+  const int per = (nbands + 31) / 32;
+  int sum = 0;
+  for (int k = 0; k < per; ++k) {
+    const int i = lane * per + k;
+    if (i < nbands) sum += hist[i];
+  }
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int run = incl - sum;
+  int* end_row = ends + ((size_t)blockIdx.y * nchunks + chunk) * nbands;
+  for (int k = 0; k < per; ++k) {
+    const int i = lane * per + k;
+    if (i < nbands) {
+      const int c = hist[i];
+      hist[i] = run;
+      run += c;
+      end_row[i] = run;
     }
   }
-  for (int r = 0; r < rows_here; ++r)
-    for (int c = tid; c < W; c += kThreads) {
-      const size_t o = ((size_t)b * H + r0 + r) * W + c;
-      out0[o] = band[r * W + c];
-      out1[o] = band[(kBandRows + r) * W + c];
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    if (band[s] < 0) continue;
+    const float2 n = nrm[base + s * 32 + lane];
+    recs[base + hist[band[s]] + rank[s]] =
+        make_int4(pix[s], __float_as_int(n.x), __float_as_int(n.y), 0);
+  }
+}
+
+// Pass 2: one block per (band, image). It finds the band's records in every
+// chunk (a block scan of their counts, in chunk order), zero-fills the band's
+// two planes in shared memory, stages the records in list order and adds
+// them without float atomics: warp w owns the pixels whose 4-pixel group is
+// w mod kWarps and walks the list in order, 32 records a step; the records of
+// one pixel within a step (__match_any_sync) are added by their first lane
+// in lane order. So every pixel's sum is taken in (instance, sample) order,
+// as the sequential scatter-add takes it. The band goes out as 16-byte
+// stores; a band without records stores zeros without touching shared
+// memory.
+__global__ void __launch_bounds__(kThreads)
+nmap_band_kernel(const int4* __restrict__ recs, const int* __restrict__ ends,
+                 int MP, int H, int W, int nbands, int nchunks,
+                 float* __restrict__ out0, float* __restrict__ out1) {   // [B, H, W]
+  extern __shared__ float4 s_mem[];
+  float* plane0 = reinterpret_cast<float*>(s_mem);             // [kBandRows * W]
+  float* plane1 = plane0 + kBandRows * W;
+  int* list_pix = reinterpret_cast<int*>(plane1 + kBandRows * W);   // [kListCap]
+  float* list_n0 = reinterpret_cast<float*>(list_pix + kListCap);
+  float* list_n1 = list_n0 + kListCap;
+  int* pos = reinterpret_cast<int*>(list_n1 + kListCap);        // [nchunks]
+  int* from = pos + nchunks;                                    // [nchunks]
+  __shared__ int s_warp[kWarps];
+  const int b = blockIdx.y, band = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rows = min(kBandRows, H - band * kBandRows);
+
+  // each chunk's count in this band and where its records start
+  const int per = (nchunks + kThreads - 1) / kThreads;
+  int sum = 0;
+  for (int k = 0; k < per; ++k) {
+    const int c = tid * per + k;
+    if (c < nchunks) {
+      const int* e = ends + ((size_t)b * nchunks + c) * nbands + band;
+      const int start = band > 0 ? e[-1] : 0;
+      from[c] = start;
+      pos[c] = e[0] - start;
+      sum += e[0] - start;
     }
+  }
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int run = incl - sum, total = 0;
+  for (int v = 0; v < kWarps; ++v) {
+    if (v < warp) run += s_warp[v];
+    total += s_warp[v];
+  }
+  for (int k = 0; k < per; ++k) {
+    const int c = tid * per + k;
+    if (c < nchunks) {
+      const int count = pos[c];
+      pos[c] = run;
+      run += count;
+    }
+  }
+
+  const size_t obase = ((size_t)b * H + band * kBandRows) * W;
+  const int n4 = rows * W / 4;                    // W % 4 == 0
+  float4* o0 = reinterpret_cast<float4*>(out0 + obase);
+  float4* o1 = reinterpret_cast<float4*>(out1 + obase);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (total == 0) {                               // uniform across the block
+    for (int i = tid; i < n4; i += kThreads) {
+      o0[i] = zero;
+      o1[i] = zero;
+    }
+    return;
+  }
+  float4* p0 = reinterpret_cast<float4*>(plane0);
+  float4* p1 = reinterpret_cast<float4*>(plane1);
+  for (int i = tid; i < n4; i += kThreads) {
+    p0[i] = zero;
+    p1[i] = zero;
+  }
+  const int4* img = recs + (size_t)b * MP;
+  for (int w0 = 0; w0 < total; w0 += kListCap) {
+    const int count = min(kListCap, total - w0);
+    __syncthreads();                              // pos/from, zeros, the last window
+    for (int i = tid; i < count; i += kThreads) {
+      const int g = w0 + i;
+      int lo = 0, hi = nchunks - 1;               // the last chunk starting at or before g
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pos[mid] <= g) lo = mid; else hi = mid - 1;
+      }
+      const int4 r = img[(size_t)lo * kChunk + from[lo] + (g - pos[lo])];
+      list_pix[i] = r.x;
+      list_n0[i] = __int_as_float(r.y);
+      list_n1[i] = __int_as_float(r.z);
+    }
+    __syncthreads();
+    for (int s0 = 0; s0 < count; s0 += 32) {
+      const int i = s0 + lane;
+      const int px = i < count ? list_pix[i] : -1;
+      const bool mine = px >= 0 && ((px >> 2) % kWarps) == warp;
+      const unsigned grp = __match_any_sync(kFull, mine ? px : -1);
+      if (mine && lane == __ffs(grp) - 1) {
+        float a0 = plane0[px], a1 = plane1[px];
+        for (unsigned m = grp; m; m &= m - 1) {
+          const int k = s0 + __ffs(m) - 1;
+          a0 += list_n0[k];
+          a1 += list_n1[k];
+        }
+        plane0[px] = a0;
+        plane1[px] = a1;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n4; i += kThreads) {
+    o0[i] = p0[i];
+    o1[i] = p1[i];
+  }
+}
+
+size_t nmap_band_smem(int W, int nchunks) {
+  return sizeof(float) * 2 * kBandRows * W + (sizeof(int) + 2 * sizeof(float)) * kListCap +
+         sizeof(int) * 2 * nchunks;
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` once per process
+// and device (`done` holds what was set so far, per device).
+cudaError_t allow_smem(const void* kernel, size_t bytes, size_t* done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (bytes <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
 }
 
 }  // namespace
@@ -304,16 +463,38 @@ extern "C" int iseg_minr2_from_cnt(const void* cnt, const void* has, int BM, int
   return (int)cudaGetLastError();
 }
 
-extern "C" int iseg_rasterize_nmap(const void* ys, const void* xs, const void* n0,
-                                   const void* n1, const void* rows, int B, int M, int P,
-                                   int H, int W, void* out0, void* out1, void* stream) {
-  const size_t smem = sizeof(float) * 2 * kBandRows * W;
-  cudaError_t err = cudaFuncSetAttribute(
-      nmap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Scratch of K5: the records (16 B per point) and the bands' ends per chunk.
+extern "C" size_t iseg_nmap_scratch_bytes(int B, int M, int P, int H) {
+  const int nbands = (H + kBandRows - 1) / kBandRows;
+  const int nchunks = (M * P + kChunk - 1) / kChunk;
+  return (size_t)B * M * P * sizeof(int4) + (size_t)B * nchunks * nbands * sizeof(int);
+}
+
+// points [B, M, P, 2] int32, valid [B, M, P] bool (its bytes), normals
+// [B, M, P, 2] f32 -> out [2, B, H, W] f32; two launches.
+extern "C" int iseg_rasterize_nmap(const void* points, const void* valid, const void* normals,
+                                   int B, int M, int P, int H, int W, void* out, void* scratch,
+                                   void* stream) {
+  static size_t bin_done[64], band_done[64];
+  const int MP = M * P;
+  const int nbands = (H + kBandRows - 1) / kBandRows;
+  const int nchunks = (MP + kChunk - 1) / kChunk;
+  int4* recs = (int4*)scratch;
+  int* ends = (int*)(recs + (size_t)B * MP);
+  const size_t bin_smem = sizeof(int) * kWarps * nbands;
+  const size_t band_smem = nmap_band_smem(W, nchunks);
+  cudaError_t err = allow_smem((const void*)nmap_bin_kernel, bin_smem, bin_done);
+  if (err == cudaSuccess)
+    err = allow_smem((const void*)nmap_band_kernel, band_smem, band_done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + kBandRows - 1) / kBandRows, B);
-  nmap_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)ys, (const int32_t*)xs, (const float*)n0, (const float*)n1,
-      (const int32_t*)rows, M, P, H, W, (float*)out0, (float*)out1);
+  nmap_bin_kernel<<<dim3((nchunks + kWarps - 1) / kWarps, B), kThreads, bin_smem,
+                    (cudaStream_t)stream>>>(
+      (const int2*)points, (const uint8_t*)valid, (const float2*)normals, MP, H, W, nbands,
+      nchunks, recs, ends);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  float* out0 = (float*)out;
+  nmap_band_kernel<<<dim3(nbands, B), kThreads, band_smem, (cudaStream_t)stream>>>(
+      recs, ends, MP, H, W, nbands, nchunks, out0, out0 + (size_t)B * H * W);
   return (int)cudaGetLastError();
 }

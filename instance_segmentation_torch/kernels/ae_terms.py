@@ -12,8 +12,9 @@ pixel's dmax cotangent goes to its first-max center.
 
 Inputs: ey, ex, sy, sx f32 [B, H, W]; r2 u8 and cnt u16 [B, M, H, W] (K2);
 ``tab`` f32 [B, M, 8] (``pack_table``); ``lut`` f32 [256] (``neg4_lut``);
-``cntp`` u8 [B, M, ntiles] (``tile_presence``), which must mark every tile
-where an instance has samples. Samples belong to valid instances only.
+``cntp`` int32 [B, ntiles, 4] (``tile_presence``): per tile a bitmask of the
+instances with samples there (bit m % 32 of word m // 32), which must mark
+every such (tile, instance). Samples belong to valid instances only.
 
 ``ae_terms`` runs the kernels on CUDA tensors and the plain PyTorch twin
 ``ae_terms_plain`` (whose autograd gives the gradient) on CPU tensors; any
@@ -59,18 +60,39 @@ def num_tiles(h: int, w: int) -> Tuple[int, int]:
     return -(-h // TILE_H), -(-w // TILE_W)
 
 
+def presence_words(m: int) -> int:
+    """Words of a tile's presence bitmask: 4 (128 instances, one 16-byte load
+    in the kernels) for every 128 instances."""
+    return 4 * -(-m // MAX_M)
+
+
 def tile_presence(points: torch.Tensor, pt_valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """u8 [B, M, ntiles]: 1 where instance m has a valid sample (clipped as the
-    rasterizer clips it) in the tile, the reference's
-    ``_any_points_from_points`` at this kernel's tile shape."""
+    """int32 [B, ntiles, presence_words(M)]: bit m % 32 of word m // 32 set
+    where instance m has a valid sample (clipped as the rasterizer clips it)
+    in the tile, the reference's ``_any_points_from_points`` at this kernel's
+    tile shape as a bitmask. No host sync: invalid samples go to a spare
+    slot."""
     B, M, _, _ = points.shape
     nh, nw = num_tiles(h, w)
+    nbits = presence_words(M) * 32
+    dev = points.device
     ty = points[..., 0].clamp(0, h - 1).long() // TILE_H
     tx = points[..., 1].clamp(0, w - 1).long() // TILE_W
-    slot = torch.arange(B * M, device=points.device).view(B, M, 1) * (nh * nw)
-    out = torch.zeros(B * M * nh * nw, dtype=torch.uint8, device=points.device)
-    out[(slot + ty * nw + tx)[pt_valid]] = 1
-    return out.view(B, M, nh * nw)
+    tile = torch.arange(B, device=dev).view(B, 1, 1) * (nh * nw) + ty * nw + tx
+    size = B * nh * nw * nbits
+    flat = torch.where(pt_valid, tile * nbits + torch.arange(M, device=dev).view(1, M, 1), size)
+    bits = torch.zeros(size + 1, dtype=torch.uint8, device=dev)
+    bits[flat.view(-1)] = 1
+    bits = bits[:size].view(B, nh * nw, nbits // 32, 32).to(torch.int64)
+    words = (bits << torch.arange(32, device=dev)).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def presence_dense(cntp: torch.Tensor, m: int) -> torch.Tensor:
+    """bool [B, M, ntiles]: the bitmask of ``tile_presence`` unpacked."""
+    shifts = torch.arange(32, device=cntp.device)
+    bits = (cntp.to(torch.int64)[..., None] >> shifts) & 1
+    return bits.flatten(2)[..., :m].transpose(1, 2).bool()
 
 
 def _affinity(ey, ex, sy, sx, cy, cx):
@@ -118,17 +140,18 @@ def ae_terms_plain(ey: torch.Tensor, ex: torch.Tensor, sy: torch.Tensor, sx: tor
 def _check(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[int, int, int, int]:
     B, H, W = ey.shape if ey.dim() == 3 else (-1, -1, -1)
     M = tab.shape[1] if tab.dim() == 3 else -1
-    for name, t in (("ey", ey), ("ex", ex), ("sy", sy), ("sx", sx)):
-        if tuple(t.shape) != (B, H, W) or t.dtype != torch.float32:
-            raise ValueError(f"{name}: want float32 [B, H, W], got {t.dtype} {tuple(t.shape)}")
-    want = {"r2": (r2, torch.uint8, (B, M, H, W)), "cnt": (cnt, torch.uint16, (B, M, H, W)),
-            "tab": (tab, torch.float32, (B, M, 8)), "lut": (lut, torch.float32, (256,)),
-            "cntp": (cntp, torch.uint8, (B, M, num_tiles(H, W)[0] * num_tiles(H, W)[1]))}
-    for name, (t, dtype, shape) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
+    nh, nw = num_tiles(H, W)
+    f32, bhw, bmhw = torch.float32, (B, H, W), (B, M, H, W)
+    for name, t, dtype, shape in (("ey", ey, f32, bhw), ("ex", ex, f32, bhw), ("sy", sy, f32, bhw),
+                                  ("sx", sx, f32, bhw), ("r2", r2, torch.uint8, bmhw),
+                                  ("cnt", cnt, torch.uint16, bmhw), ("tab", tab, f32, (B, M, 8)),
+                                  ("lut", lut, f32, (256,)),
+                                  ("cntp", cntp, torch.int32, (B, nh * nw, presence_words(M)))):
+        if t.dtype != dtype or t.shape != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-    tensors = (ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
-    if any(t.device != ey.device for t in tensors):
+    dev = ey.device
+    if not (ex.device == sy.device == sx.device == r2.device == cnt.device == tab.device
+            == lut.device == cntp.device == dev):
         raise ValueError("ae_terms inputs lie on different devices")
     if W % 4:
         raise ValueError(f"ae_terms takes W a multiple of 4, got {W}")
@@ -151,7 +174,7 @@ def _kernels():
     fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     fwd.restype = ctypes.c_int
     bwd = lib.iseg_ae_terms_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
     bwd.restype = ctypes.c_int
     return lib.iseg_ae_tiles, fwd, bwd
 
@@ -167,15 +190,14 @@ def ae_terms_fwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[torch.Tensor,
     _cuda_checks(inputs, M)
     tiles, fwd, _ = _kernels()
     nt = tiles(H, W)
-    if nt != cntp.shape[2]:
-        raise RuntimeError(f"tile count {nt} of the kernel differs from {cntp.shape[2]}")
+    if nt != cntp.shape[1]:
+        raise RuntimeError(f"tile count {nt} of the kernel differs from {cntp.shape[1]}")
     out = torch.empty((4, B, M), dtype=torch.float32, device=ey.device)
     if B * M * H * W == 0:
         return tuple(out.zero_().unbind(0))
     partial = torch.empty((B, nt, M, 4), dtype=torch.float32, device=ey.device)
-    with torch.cuda.device(ey.device):
-        err = fwd(*_ptrs(*inputs), B, M, H, W, partial.data_ptr(), out.data_ptr(),
-                  torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fwd, ey.device, *_ptrs(*inputs), B, M, H, W, partial.data_ptr(),
+                       out.data_ptr())
     if err != 0:
         raise RuntimeError(f"ae_terms forward kernel launch failed: CUDA error {err}")
     launches["ae_terms_fwd"] += 1
@@ -185,23 +207,28 @@ def ae_terms_fwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[torch.Tensor,
 def ae_terms_bwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp, g_pos: torch.Tensor,
                  g_neg: torch.Tensor, g_pull: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Kernel K4 on CUDA tensors: d(ey, ex, sy, sx) f32 [B, H, W] from the
-    cotangents [B, M] of pos, neg and pull."""
+    cotangents [B, M] of pos, neg and pull: one launch, no other tensor op
+    than the gradients' allocation (a cotangent that is not a contiguous
+    float32 tensor is made one first)."""
     B, M, H, W = _check(ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
+    gs = tuple(g if g.dtype == torch.float32 and g.is_contiguous() else
+               g.to(torch.float32).contiguous() for g in (g_pos, g_neg, g_pull))
+    if any(tuple(g.shape) != (B, M) or g.device != ey.device for g in gs):
+        raise ValueError(f"the cotangents: want [B, M] = {(B, M)} on {ey.device}")
     inputs = (ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     _cuda_checks(inputs, M)
     _, _, bwd = _kernels()
-    g = torch.stack([g_pos, g_neg, torch.zeros_like(g_pos), g_pull], dim=-1)
-    g = g.to(torch.float32).contiguous()
-    grads = [torch.empty_like(ey) for _ in range(4)]
+    grads = torch.empty((4, B, H, W), dtype=torch.float32, device=ey.device)
     if B * M * H * W == 0:
-        return tuple(t.zero_() for t in grads)
-    with torch.cuda.device(ey.device):
-        err = bwd(*_ptrs(*inputs, g), B, M, H, W, *_ptrs(*grads),
-                  torch.cuda.current_stream().cuda_stream)
+        return grads.zero_().unbind(0)
+    ptr = grads.data_ptr()
+    plane = B * H * W * 4
+    err = build.launch(bwd, ey.device, *_ptrs(*inputs, *gs), B, M, H, W, ptr, ptr + plane,
+                       ptr + 2 * plane, ptr + 3 * plane)
     if err != 0:
         raise RuntimeError(f"ae_terms backward kernel launch failed: CUDA error {err}")
     launches["ae_terms_bwd"] += 1
-    return tuple(grads)
+    return grads.unbind(0)
 
 
 class _AeTerms(torch.autograd.Function):

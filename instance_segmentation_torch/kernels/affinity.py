@@ -79,11 +79,9 @@ def _launch(kp_rc, emb, sig, c_emb, boxes, det_valid):
     best = torch.empty((B, K), dtype=torch.float32, device=kp_rc.device)
     if B * K == 0:
         return assign, best
-    with torch.cuda.device(kp_rc.device):
-        err = _kernel()(kp_rc.data_ptr(), emb.data_ptr(), sig.data_ptr(), c_emb.data_ptr(),
-                        boxes.data_ptr(), det_valid.data_ptr(), B, K, D,
-                        assign.data_ptr(), best.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
+    err = build.launch(_kernel(), kp_rc.device, kp_rc.data_ptr(), emb.data_ptr(),
+                       sig.data_ptr(), c_emb.data_ptr(), boxes.data_ptr(), det_valid.data_ptr(),
+                       B, K, D, assign.data_ptr(), best.data_ptr())
     if err != 0:
         raise RuntimeError(f"affinity kernel launch failed: CUDA error {err}")
     launches += 1

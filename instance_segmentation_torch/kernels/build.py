@@ -6,7 +6,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 source and the flags, so an edited kernel rebuilds and an unchanged one is
 reused. Nothing is built at import time: the first ``load`` of a kernel in a
 process builds it if needed; ``build_all`` builds several at once, one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together. ``nvcc`` runs with
+``-Xptxas -v``; its output (each kernel's registers, spills and shared
+memory) is kept beside the library as ``<name>-<hash>.log`` and read by
+``ptxas_usage``. ``launch`` calls an entry point on a device's current
+stream.
 """
 
 from __future__ import annotations
@@ -15,17 +19,20 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -60,6 +67,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu ({proc.returncode}):\n{output}")
         out = library_path(name)
+        out.with_suffix(".log").write_text(output)
         os.replace(tmp, out)
         return out
     finally:
@@ -93,6 +101,52 @@ def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     return build_all([name])[name][0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last identifier of a mangled kernel name that ends in "_kernel"
+    (each identifier is prefixed by its length), else the mangled name."""
+    head = mangled[:mangled.rfind("_kernel") + len("_kernel")]
+    for n in range(len("_kernel") + 1, min(len(head), 64)):
+        if head[:-n].endswith(str(n)):
+            return head[-n:]
+    return mangled
+
+
+def ptxas_usage(name: str) -> List[str]:
+    """One line per kernel of ``csrc/<name>.cu`` as ``-Xptxas -v`` reported
+    it when the library was built: "kernel: N registers, S bytes spill
+    stores, L bytes spill loads, X bytes smem"."""
+    log = library_path(name).with_suffix(".log")
+    lines, kernel = [], None
+    for line in log.read_text().splitlines() if log.is_file() else []:
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = _kernel_name(entry.group(1))
+            spills = None
+        elif kernel and "spill stores" in line:
+            spills = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            spill = ", ".join(f"{n} bytes spill {k}" for n, k in spills or [])
+            lines.append(f"{kernel}: {regs} registers, {spill}, "
+                         f"{smem.group(1) if smem else 0} bytes smem")
+            kernel = None
+    return lines
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``: a C entry point called with the raw handle of
+    ``device``'s current CUDA stream, with ``device`` made the current device
+    first when it is not (an entry point launches on the current device).
+    Returns the entry point's CUDA error code."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 @functools.cache

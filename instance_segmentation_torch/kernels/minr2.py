@@ -76,9 +76,8 @@ def minr2_from_cnt(cnt: torch.Tensor, has: torch.Tensor, radius: int = 3) -> tor
     r2 = torch.empty((B, M, h, w), dtype=torch.uint8, device=cnt.device)
     if B * M == 0:
         return r2
-    with torch.cuda.device(cnt.device):
-        err = _kernel()(cnt.data_ptr(), has.data_ptr(), B * M, h, w, r2.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
+    err = build.launch(_kernel(), cnt.device, cnt.data_ptr(), has.data_ptr(), B * M, h, w,
+                       r2.data_ptr())
     if err != 0:
         raise RuntimeError(f"minr2_from_cnt kernel launch failed: CUDA error {err}")
     launches["minr2_from_cnt"] += 1

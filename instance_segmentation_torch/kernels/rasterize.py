@@ -10,8 +10,8 @@ bit for bit to the reference's ``ae_sample_count``, ``_shift_min_r2`` and
 
 K5 ``rasterize_nmap`` replaces ``rasterize_pallas.py:rasterize_nmap``: the two
 f32 planes summing each valid sample's inward normal at its (clipped)
-pixel, the tangent loss's target field, equal to a scatter-add up to
-summation order.
+pixel, the tangent loss's target field. Kernel and twin both sum each pixel
+in (image, instance, sample) order, so they agree bit for bit.
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch twin
 on CPU tensors; any other device raises. ``launches`` counts kernel
@@ -139,10 +139,8 @@ def rasterize_cnt_r2(points: torch.Tensor, pt_valid: torch.Tensor, h: int, w: in
     uni = torch.empty((B, h, w), dtype=torch.uint8, device=dev)
     if B * M == 0:
         return cnt, r2, uni.zero_()
-    with torch.cuda.device(dev):
-        err = _cnt_r2_kernel()(ys.data_ptr(), xs.data_ptr(), has.data_ptr(), B, M, P, h, w,
-                               cnt.data_ptr(), r2.data_ptr(), uni.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
+    err = build.launch(_cnt_r2_kernel(), dev, ys.data_ptr(), xs.data_ptr(), has.data_ptr(),
+                       B, M, P, h, w, cnt.data_ptr(), r2.data_ptr(), uni.data_ptr())
     if err != 0:
         raise RuntimeError(f"rasterize_cnt_r2 kernel launch failed: CUDA error {err}")
     launches["rasterize_cnt_r2"] += 1
@@ -171,39 +169,45 @@ def rasterize_nmap_plain(points: torch.Tensor, pt_valid: torch.Tensor,
 
 @functools.cache
 def _nmap_kernel():
-    fn = build.load("rasterize").iseg_rasterize_nmap
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    lib = build.load("rasterize")
+    fn = lib.iseg_rasterize_nmap
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    return fn
+    lib.iseg_nmap_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.iseg_nmap_scratch_bytes.restype = ctypes.c_size_t
+    return fn, functools.cache(lib.iseg_nmap_scratch_bytes)
 
 
 def rasterize_nmap(points: torch.Tensor, pt_valid: torch.Tensor, normals: torch.Tensor,
                    h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """points [B, M, P, 2] int32; pt_valid [B, M, P] bool; normals [B, M, P, 2]
-    f32 -> (nmap0, nmap1) f32 [B, H, W]. CUDA tensors run kernel K5; CPU
-    tensors run ``rasterize_nmap_plain``."""
+    f32 -> (nmap0, nmap1) f32 [B, H, W]. CUDA tensors run kernel K5 (two
+    launches from one C call, no tensor op besides the outputs' and the
+    scratch's allocation); CPU tensors run ``rasterize_nmap_plain``. Both sum
+    each pixel in (image, instance, sample) order: the results are equal bit
+    for bit."""
     _check(points, pt_valid, h, w)
     if tuple(normals.shape) != tuple(points.shape) or normals.dtype != torch.float32:
         raise ValueError(f"normals: want float32 {tuple(points.shape)}, got "
                          f"{normals.dtype} {tuple(normals.shape)}")
     if _device_kind(points, "rasterize_nmap") == "cpu":
         return rasterize_nmap_plain(points, pt_valid, normals, h, w)
+    dev = points.device
+    if normals.device != dev:
+        raise ValueError("points and normals lie on different devices")
+    if not (points.is_contiguous() and pt_valid.is_contiguous() and normals.is_contiguous()
+            ) or (points.data_ptr() | normals.data_ptr()) % 8:
+        raise ValueError("rasterize_nmap takes contiguous inputs, points and normals 8-byte "
+                         "aligned")
     B, M, P, _ = points.shape
-    ys, xs = _encode(points, pt_valid, h, w)
-    # each instance's first and last sample row (h and -1 without samples)
-    rows = torch.stack([ys.amin(dim=2), torch.where(pt_valid, ys, -1).amax(dim=2)],
-                       dim=-1).contiguous()
-    n0 = normals[..., 0].contiguous()
-    n1 = normals[..., 1].contiguous()
-    out0 = torch.empty((B, h, w), dtype=torch.float32, device=points.device)
-    out1 = torch.empty_like(out0)
-    if B * M == 0:
-        return out0.zero_(), out1.zero_()
-    with torch.cuda.device(points.device):
-        err = _nmap_kernel()(ys.data_ptr(), xs.data_ptr(), n0.data_ptr(), n1.data_ptr(),
-                             rows.data_ptr(), B, M, P, h, w, out0.data_ptr(), out1.data_ptr(),
-                             torch.cuda.current_stream().cuda_stream)
+    out = torch.empty((2, B, h, w), dtype=torch.float32, device=dev)
+    if B * M * P == 0:
+        return out.zero_().unbind(0)
+    kernel, scratch_bytes = _nmap_kernel()
+    scratch = torch.empty(scratch_bytes(B, M, P, h), dtype=torch.uint8, device=dev)
+    err = build.launch(kernel, dev, points.data_ptr(), pt_valid.data_ptr(), normals.data_ptr(),
+                       B, M, P, h, w, out.data_ptr(), scratch.data_ptr())
     if err != 0:
         raise RuntimeError(f"rasterize_nmap kernel launch failed: CUDA error {err}")
     launches["rasterize_nmap"] += 1
-    return out0, out1
+    return out.unbind(0)

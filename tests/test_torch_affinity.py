@@ -157,6 +157,23 @@ def test_build_is_keyed_on_the_source():
     assert "pallas_kernels.py" in src and "iseg_affinity_assign" in src
 
 
+def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
+    """One line per kernel from nvcc's -Xptxas -v output kept beside the
+    library; the kernel's name is cut out of its mangled name."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    entry = "_ZN68_GLOBAL__N__2b6f7a6d_12_rasterize_cu_0b1c2d3411nmap_kernelEPKiS1_"
+    build.library_path("rasterize").with_suffix(".log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {entry}\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers, 6160 bytes smem, 448 bytes cmem[0]\n")
+    assert build.ptxas_usage("rasterize") == [
+        "nmap_kernel: 80 registers, 12 bytes spill stores, 8 bytes spill loads, 6160 bytes smem"]
+    assert build.ptxas_usage("ae_terms") == []
+    assert "-Xptxas" in build.NVCC_FLAGS
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

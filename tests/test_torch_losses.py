@@ -181,6 +181,54 @@ def test_rasterize_nmap_matches_pallas_and_scatter(interpret):
         np.testing.assert_allclose(got.numpy(), np.asarray(pallas[c]), rtol=1e-5, atol=1e-5)
 
 
+def piled_points(seed, b=2, m=6, p=256, h=32, w=64):
+    """Many samples piled on a few pixels (sums of up to ~100 normals per
+    pixel, in an order that matters in float32), samples clipped onto the
+    border, and invalid samples placed outside the image (which must count
+    nowhere, not at their clipped pixel)."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.integers(-8, h + 8, (b, m, p)), rng.integers(-8, w + 8, (b, m, p))],
+                   axis=-1).astype(np.int32)
+    pile = rng.uniform(size=(b, m, p)) < 0.5
+    pts[pile] = [h // 2, w // 3]
+    val = rng.uniform(size=(b, m, p)) < 0.8
+    val[:, m - 1] = False                              # a padding slot
+    out = ~val & (rng.uniform(size=(b, m, p)) < 0.5)
+    pts[out] = [h + 5, -7]
+    ang = rng.uniform(0, 2 * np.pi, (b, m, p))
+    normals = (np.stack([np.sin(ang), np.cos(ang)], -1) * rng.uniform(0.1, 3.0, (b, m, p, 1)))
+    return pts, val, normals.astype(np.float32), h, w
+
+
+def sequential_scatter(pts, val, normals, h, w):
+    """The summed-normal planes by a float32 loop in (image, instance,
+    sample) order, one add at a time."""
+    b_, m_, p_, _ = pts.shape
+    out = np.zeros((2, b_ * h * w), np.float32)
+    for i, j, k in np.ndindex(b_, m_, p_):
+        if val[i, j, k]:
+            y, x = min(max(pts[i, j, k, 0], 0), h - 1), min(max(pts[i, j, k, 1], 0), w - 1)
+            for c in range(2):
+                out[c, (i * h + y) * w + x] += normals[i, j, k, c]
+    return out.reshape(2, b_, h, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rasterize_nmap_plain_sums_in_instance_sample_order(seed):
+    """The twin (PyTorch's CPU index_add_) equals a sequential float32 scatter
+    bit for bit: the order K5 keeps on the card."""
+    pts, val, normals, h, w = piled_points(seed)
+    want = sequential_scatter(pts, val, normals, h, w)
+    got = trz.rasterize_nmap_plain(*map(torch.from_numpy, (pts, val, normals)), h, w)
+    assert (want != 0).sum() > 10 and np.abs(want).max() > 10.0
+    for c in range(2):
+        np.testing.assert_array_equal(got[c].numpy().view(np.int32), want[c].view(np.int32))
+    # another order of the same samples gives other bits somewhere
+    perm = np.random.default_rng(seed).permutation(pts.shape[2])
+    shuffled = sequential_scatter(pts[:, :, perm], val[:, :, perm], normals[:, :, perm], h, w)
+    assert not np.array_equal(shuffled.view(np.int32), want.view(np.int32))
+
+
 # ---- K3 / K4 -----------------------------------------------------------------------
 
 def ae_inputs(labels, seed=1):
@@ -262,8 +310,47 @@ def test_tile_presence_marks_every_sample_tile():
     cntp = tae.tile_presence(torch.from_numpy(pts), torch.from_numpy(val), h, w)
     cnt = trz.sample_count(torch.from_numpy(pts), torch.from_numpy(val), h, w)
     nh, nw = tae.num_tiles(h, w)
+    assert cntp.dtype == torch.int32 and tuple(cntp.shape) == (2, nh * nw, 4)
     dense = cnt.view(2, 6, nh, tae.TILE_H, nw, tae.TILE_W).sum((3, 5)) > 0
-    np.testing.assert_array_equal(cntp.numpy(), dense.reshape(2, 6, -1).numpy())
+    np.testing.assert_array_equal(tae.presence_dense(cntp, 6).numpy(),
+                                  dense.reshape(2, 6, -1).numpy())
+
+
+@pytest.mark.parametrize("m", [32, 100, 128])
+def test_tile_presence_bits_are_the_dense_pairs(m):
+    """The bitmask marks exactly the (tile, instance) pairs a dense reference
+    marks, every bit position of the 4 words included (bit 31 makes a word
+    negative), and the twin's results do not depend on it."""
+    rng = np.random.default_rng(m)
+    b, p, h, w = 2, 48, 48, 192
+    pts = np.stack([rng.integers(-10, h + 10, (b, m, p)), rng.integers(-10, w + 10, (b, m, p))],
+                   axis=-1).astype(np.int32)
+    val = rng.uniform(size=(b, m, p)) < 0.3
+    val[0, ::7] = False
+    pts_t, val_t = torch.from_numpy(pts), torch.from_numpy(val)
+    cntp = tae.tile_presence(pts_t, val_t, h, w)
+    nh, nw = tae.num_tiles(h, w)
+    want = np.zeros((b, m, nh * nw), bool)
+    for i, j, k in zip(*np.nonzero(val)):
+        y, x = min(max(pts[i, j, k, 0], 0), h - 1), min(max(pts[i, j, k, 1], 0), w - 1)
+        want[i, j, (y // tae.TILE_H) * nw + x // tae.TILE_W] = True
+    words = cntp.numpy().view(np.uint32)
+    got = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    got = got.reshape(b, nh * nw, -1)[..., :m].transpose(0, 2, 1).astype(bool)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tae.presence_dense(cntp, m).numpy(), want)
+    assert (cntp < 0).any() == want[:, 31::32].any()
+    # the twin reads no presence: a full and an empty mask give the same terms
+    fields = [torch.from_numpy(rng.normal(0, 1, (b, h, w)).astype(np.float32)) for _ in range(4)]
+    fields[2], fields[3] = fields[2].exp(), fields[3].exp()
+    cnt, r2, _ = trz.rasterize_cnt_r2(pts_t, val_t, h, w)
+    tab = tae.pack_table(torch.rand(b, m, 2), torch.zeros(b, m, 2),
+                         torch.full((b, m, 2), 40.0), torch.from_numpy(val.any(axis=2)))
+    lut = tae.neg4_lut(tl._NEG4_TABLE)
+    terms = [tae.ae_terms(*fields, r2, cnt, tab, lut, c)
+             for c in (cntp, torch.full_like(cntp, -1), torch.zeros_like(cntp))]
+    for other in terms[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(terms[0], other))
 
 
 # ---- the losses ----------------------------------------------------------------------
@@ -437,6 +524,17 @@ def test_rasterizers_match_twins_on_card(cuda_device):
         assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
     for g, w in zip(n, n_plain):
         assert torch.allclose(g, w, rtol=1e-5, atol=1e-5)
+    # bitwise: against the twin on the CPU and across two launches
+    n_cpu = trz.rasterize_nmap_plain(t.points.cpu(), t.pt_valid.cpu(), t.normals.cpu(), H, W)
+    again = trz.rasterize_nmap(t.points, t.pt_valid, t.normals, H, W)
+    for g, w, a in zip(n, n_cpu, again):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+    pts, val, normals, h, w = piled_points(0, w=128)
+    piled = [torch.from_numpy(a) for a in (pts, val, normals)]
+    got = trz.rasterize_nmap(*(a.to(cuda_device) for a in piled), h, w)
+    for g, w_ in zip(got, trz.rasterize_nmap_plain(*piled, h, w)):
+        assert torch.equal(g.cpu().view(torch.int32), w_.view(torch.int32))
 
 
 @pytest.mark.cuda
