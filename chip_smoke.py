@@ -51,10 +51,11 @@ Phases, one result line each; any failure raises and exits non-zero:
      and K5 once a step and K2 never on the count-map route; K5 alone on
      the windowed one.
 
-Beside every timed wrapper (phases 3, 7 and 10) a ``torch.profiler``
-window over the same number of calls gives the kernel's own device time
-per call and how many device kernels one call launches, PyTorch's
-included.
+Beside every timed wrapper (phases 3, 7 and 10) ``kernel_timing.py``
+gives the kernel's own device time per call (its C entry point called
+again on the inputs the wrapper prepared, queued, no host gaps) and, from
+a ``torch.profiler`` window, how many device kernels one call launches,
+PyTorch's included.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after: K1's from the serving slice, K2-K5's from the training slice, K6's
@@ -74,6 +75,7 @@ import time
 import numpy as np
 import torch
 
+import kernel_timing
 from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
@@ -175,65 +177,17 @@ def cuda_median_ms(fn, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def kernel_alone(fn, own, queued: float, iters: int = 20, pads=(0.05, 0.5, 2.0)):
-    """(device ms per call of the kernels whose names contain one of the
-    strings ``own``, device activities per call, of which own): a
-    ``torch.profiler`` window over ``iters`` calls of ``fn``, after one
-    warm-up and two calls inside the window whose events are dropped, padded
-    at both ends with host sleep. Device activities are every kernel,
-    PyTorch's included, and every memset and copy. Late in a long process
-    the profiler can lose or truncate a window's device events; a window
-    whose device time per call falls below half of ``queued`` (``queued_ms``
-    of ``fn``) is taken again with the next, longer padding of ``pads`` (in
-    seconds), and the time is None if none holds."""
-    fn()
-    torch.cuda.synchronize()
-    calls = iters + 2
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    per_call = own_per_call = None
-    for pad in pads:
-        with torch.profiler.profile(activities=acts) as prof:
-            time.sleep(pad)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(pad)
-        device = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        if not device:
-            continue
-        per_call = round(len(device) / calls)
-        own_per_call = round(sum(any(n in e.name for n in own) for e in device) / calls)
-        last = device[len(device) - iters * per_call:]
-        if sum(e.time_range.elapsed_us() for e in last) / 1e3 / iters >= 0.5 * queued:
-            mine = sum(e.time_range.elapsed_us() for e in last if any(n in e.name for n in own))
-            return mine / 1e3 / iters, per_call, own_per_call
-    return None, per_call, own_per_call
+def own_time(fn):
+    """(device ms per call of the port's own kernels, device kernels per
+    call, of which the port's): ``kernel_timing``'s measures of a wrapper."""
+    ms, _ = kernel_timing.own_ms(fn)
+    return (ms, *kernel_timing.kernels_per_call(fn))
 
 
-def queued_ms(fn, iters: int = 20) -> float:
-    """Device time per call of everything ``fn`` launches, with no host gap:
-    the ``iters`` calls are queued behind a 20 ms device wait and timed
-    between two CUDA events recorded after the wait and after the calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def alone_text(alone, queued: float) -> str:
-    ms, per_call, own = alone
-    where = (f"kernel alone {ms:.4f} ms" if ms is not None else
-             "kernel alone not measured (no profiler window held its device events)")
-    return (f"{where}, {per_call} device kernels per call ({own} the port's own), "
-            f"all of them queued {queued:.4f} ms per call")
+def own_text(own) -> str:
+    ms, total, port = own
+    return (f"kernel alone {ms:.4f} ms, {total} device kernels per call ({port} the port's "
+            f"own)")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -275,14 +229,12 @@ def phase_affinity(dev: torch.device) -> dict:
     in_no_box = int((~contained.any(-1)).sum())
     ms = cuda_median_ms(lambda: affinity.affinity_assign(*inputs))
     plain_ms = cuda_median_ms(lambda: affinity.affinity_assign_plain(*inputs))
-    queued = queued_ms(lambda: affinity.affinity_assign(*inputs))
-    alone = kernel_alone(lambda: affinity.affinity_assign(*inputs), ("affinity_kernel",),
-                         queued)
+    alone = own_time(lambda: affinity.affinity_assign(*inputs))
     print(f"[3] K1 vs plain B,K,D={AFFINITY_SHAPE}: assign mismatches {int(mismatch.sum())} "
           f"(near ties {int(near.sum())}, exact ties {int(exact_tie.sum())}; all agree "
           f"outside near ties), keypoints in no box {in_no_box}, best max|err| {max_abs:.3g}"
           f" (rtol 1e-6); wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); "
-          f"{alone_text(alone, queued)}", flush=True)
+          f"{own_text(alone)}", flush=True)
     b, k, d = AFFINITY_SHAPE
     # reads row/col, embedding and sigma per keypoint and the center table,
     # writes assign and best; per (keypoint, center): 2 sub, 4 mul, 1 add,
@@ -408,22 +360,20 @@ def phase_train_kernels(dev: torch.device) -> list:
     check(err == 0, f"K2 differs from its twin by {err}")
     ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
     plain_ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w))
-    queued = queued_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
-    alone = kernel_alone(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w),
-                         ("cnt_r2_kernel",), queued)
+    alone = own_time(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
     # reads the point list once, writes cnt (2 B), r2 (1 B) and the union;
     # its work is integer counting and min, no float32 operations
     bound_ms, bound_by = bound(b * m * p * 9 + b * m * h * w * 3 + b * h * w, 0)
     print(f"[7] K2 rasterize_cnt_r2 B,M,P,H,W={TRAIN_SHAPE} ({live} of {b * m} slots live, "
           f"{int(t.pt_valid.sum())} samples): cnt, r2, union bitwise equal to the twin; "
           f"wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{alone_text(alone, queued)}", flush=True)
+          f"{own_text(alone)}", flush=True)
     records.append({"name": "rasterize_cnt_r2", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/rasterize.cu",
                     "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:222",
                     "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
+                    "kernel_ms": alone[0], "kernels_per_call": alone[1]})
 
     cnt, r2, _ = got
     return records + hold_loss_kernels(dev, 7, TRAIN_SHAPE, t, cnt, r2, [0, b - 1])
@@ -461,9 +411,7 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     ms = cuda_median_ms(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w))
     plain_ms = cuda_median_ms(lambda: rasterize.rasterize_nmap_plain(t.points, t.pt_valid,
                                                                      t.normals, h, w))
-    queued = queued_ms(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w))
-    alone = kernel_alone(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w),
-                         ("nmap_",), queued)
+    alone = own_time(lambda: rasterize.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w))
     # the nearest single PyTorch call: one index_add_ of the masked normals
     # [N, 2] into a [B*H*W, 2] buffer at prebuilt flat indices (building the
     # indices and zeroing the buffer are left out of its time)
@@ -473,19 +421,20 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     nrm = t.normals[t.pt_valid].contiguous()
     buf = torch.zeros((b * h * w, 2), dtype=torch.float32, device=dev)
     library_ms = cuda_median_ms(lambda: buf.index_add_(0, flat, nrm))
-    # reads points, pt_valid and normals once, writes two f32 planes; one
-    # add per channel and valid sample
-    bound_ms, bound_by = bound(b * m * p * 17 + 2 * b * h * w * 4, 2 * int(t.pt_valid.sum()))
+    # reads pt_valid once and the point (8 B) and normal (8 B) of each valid
+    # sample, writes two f32 planes; one add per channel and valid sample
+    n_samples = int(t.pt_valid.sum())
+    bound_ms, bound_by = bound(b * m * p + 16 * n_samples + 2 * b * h * w * 4, 2 * n_samples)
     print(f"[{phase}] K5 rasterize_nmap {where}: max|kernel - twin| {err:.3g} (rtol 1e-5, "
           f"atol 1e-5), bitwise equal to the CPU twin and across two launches; wrapper "
           f"{ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{alone_text(alone, queued)}; index_add_ {library_ms:.4f} ms", flush=True)
+          f"{own_text(alone)}; index_add_ {library_ms:.4f} ms", flush=True)
     records.append({"name": "rasterize_nmap", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/rasterize.cu",
                     "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:163",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
+                    "kernel_ms": alone[0], "kernels_per_call": alone[1]})
 
     # K3
     xym = losses.coordinate_grid(h, w, dev)
@@ -509,9 +458,7 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     ms = cuda_median_ms(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
     with torch.no_grad():
         plain_ms = cuda_median_ms(lambda: ae_terms.ae_terms_plain(*fields, *rest))
-    queued = queued_ms(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
-    alone = kernel_alone(lambda: ae_terms.ae_terms_fwd(*fields, *rest), ("ae_fwd", "ae_reduce"),
-                         queued)
+    alone = own_time(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
     pairs, any_tiles = visited_tiles(tab, cntp, h, w)
     tile_px = ae_terms.TILE_H * ae_terms.TILE_W
     n_valid = int(t.inst_valid.sum()) // b
@@ -525,13 +472,13 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     print(f"[{phase}] K3 ae_terms forward {where}: {pairs} (tile, instance) pairs visited of "
           f"{b * m * cntp.shape[1]}, {any_tiles} sample tiles; max|kernel - twin| {err:.3g} "
           f"(rtol 1e-5); wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); {alone_text(alone, queued)}", flush=True)
+          f"({bound_by}); {own_text(alone)}", flush=True)
     records.append({"name": "ae_terms_fwd", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/ae_terms.cu",
                     "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:325",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
+                    "kernel_ms": alone[0], "kernels_per_call": alone[1]})
 
     # K4: the kernel on images ``sub`` against the twin's autograd there;
     # through the autograd.Function too
@@ -558,8 +505,7 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     cot = wts.unbind(0)
     ms = cuda_median_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
     plain_ms = cuda_median_ms(lambda: torch.autograd.grad(objective, fields2, retain_graph=True))
-    queued = queued_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
-    alone = kernel_alone(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot), ("ae_bwd",), queued)
+    alone = own_time(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
     # reads the 4 fields, writes 4 gradient planes, 3 B per visited slab
     # pixel; per visited pixel ~51 operations, per sample-tile pixel 10 per
     # valid center (argmax) and 21 for the argmax center's term
@@ -568,14 +514,14 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     print(f"[{phase}] K4 ae_terms backward {where} (images {sub.tolist()}): max|kernel - twin "
           f"autograd| {err:.3g} (<= 1e-4 max|g|), autograd.Function equal; wrapper {ms:.4f} ms "
           f"at B={b}, twin backward {plain_ms:.4f} ms at B={len(sub)}, bound {bound_ms:.4f} ms "
-          f"({bound_by}); {alone_text(alone, queued)}", flush=True)
+          f"({bound_by}); {own_text(alone)}", flush=True)
     records.append({"name": "ae_terms_bwd", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/ae_terms.cu",
                     "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:366",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "plain_batch": len(sub),
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                    "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]})
+                    "kernel_ms": alone[0], "kernels_per_call": alone[1]})
     return records
 
 
@@ -684,8 +630,7 @@ def phase_minr2(dev: torch.device) -> dict:
         check(got.dtype == torch.uint8 and err == 0, f"K6 differs from its twin by {err} ({name})")
         ms = cuda_median_ms(lambda: minr2.minr2_from_cnt(cnt, has))
         plain_ms = cuda_median_ms(lambda: minr2.minr2_from_cnt_plain(cnt, has))
-        queued = queued_ms(lambda: minr2.minr2_from_cnt(cnt, has))
-        alone = kernel_alone(lambda: minr2.minr2_from_cnt(cnt, has), ("minr2_kernel",), queued)
+        alone = own_time(lambda: minr2.minr2_from_cnt(cnt, has))
         live = int(has.sum())
         # reads the live slabs' counts (2 B/px) and has, writes r2 for every
         # slab (1 B/px); its work is integer min, no float32 operations
@@ -693,14 +638,14 @@ def phase_minr2(dev: torch.device) -> dict:
         print(f"[10] K6 minr2_from_cnt {name} B,M,P,H,W={(b, m, p, h, w)} ({live} of {b * m} "
               f"slabs live): bitwise equal to the twin; wrapper {ms:.4f} ms, twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median of 20); "
-              f"{alone_text(alone, queued)}", flush=True)
+              f"{own_text(alone)}", flush=True)
         # the record keeps the last case, the full-resolution shape of phase 11
         record = {"name": "minr2_from_cnt", "route": "cuda",
                   "source": "instance_segmentation_torch/csrc/rasterize.cu",
                   "replaces": "instance_segmentation_tpu/losses/minr2_pallas.py:90",
                   "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                  "kernel_ms": alone[0], "queued_ms": queued, "kernels_per_call": alone[1]}
+                  "kernel_ms": alone[0], "kernels_per_call": alone[1]}
 
     # the full-resolution case goes on: K5, K3 and K4 on its count-route maps
     hold_loss_kernels(dev, 10, FULLRES_SHAPE, t, cnt, got, [0])
@@ -766,6 +711,7 @@ def phase_fullres_slice(smi: str) -> int:
 
 def main() -> None:
     dev = require_cuda()
+    kernel_timing.hook(build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)

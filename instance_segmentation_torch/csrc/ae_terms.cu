@@ -36,7 +36,7 @@
 // passes run over the valid instances only; it reads the tile's presence in
 // one 16-byte load. The focal pass comes first and needs no dmax: it loads
 // the next visited instance's slab before this one's arithmetic, shares one
-// reciprocal between the two divisions of the focal derivatives and marks
+// IEEE reciprocal between the two divisions of the focal derivatives and marks
 // the pixels holding samples. dmax, its first-max center and the pull term
 // are computed at those pixels only, the only ones where the pull has a
 // gradient. Every pixel's gradient is written by one thread, no atomics.
@@ -124,14 +124,19 @@ __device__ __forceinline__ void store4(float* __restrict__ p, size_t o, const fl
   *reinterpret_cast<float4*>(p + o) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void load_slab4(const uint8_t* __restrict__ r2,
-                                           const uint16_t* __restrict__ cnt, size_t o,
-                                           int* rv, float* cv) {
-  const uint32_t rw = *reinterpret_cast<const uint32_t*>(r2 + o);
-  const uint2 cw = *reinterpret_cast<const uint2*>(cnt + o);
-  rv[0] = rw & 0xFF; rv[1] = (rw >> 8) & 0xFF; rv[2] = (rw >> 16) & 0xFF; rv[3] = rw >> 24;
-  cv[0] = (float)(cw.x & 0xFFFF); cv[1] = (float)(cw.x >> 16);
-  cv[2] = (float)(cw.y & 0xFFFF); cv[3] = (float)(cw.y >> 16);
+// The slab words at 4 adjacent pixels: (r2 bytes, cnt halves 0-1, 2-3).
+__device__ __forceinline__ uint3 load_slab(const uint8_t* __restrict__ r2,
+                                           const uint16_t* __restrict__ cnt, size_t o) {
+  const uint2 c = *reinterpret_cast<const uint2*>(cnt + o);
+  return make_uint3(*reinterpret_cast<const uint32_t*>(r2 + o), c.x, c.y);
+}
+
+__device__ __forceinline__ float count_of(const uint3& slab, int j) {
+  return (float)(((j < 2 ? slab.y : slab.z) >> (16 * (j % 2))) & 0xFFFFu);
+}
+
+__device__ __forceinline__ int r2_of(const uint3& slab, int j) {
+  return (slab.x >> (8 * j)) & 0xFFu;
 }
 
 __device__ __forceinline__ bool in_window(const float (*s_tab)[kMaxM], int m, float r,
@@ -179,21 +184,21 @@ ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
     if (!s_hit[m]) continue;                     // uniform across the block
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};     // pos, neg, npos, pull
     if (t.ok) {
-      int rv[4];
-      float cv[4];
-      load_slab4(r2, cnt, ((size_t)t.b * M + m) * H * W + (size_t)t.row * W + t.col, rv, cv);
+      const uint3 slab =
+          load_slab(r2, cnt, ((size_t)t.b * M + m) * H * W + (size_t)t.row * W + t.col);
       for (int j = 0; j < 4; ++j) {
+        const float cv = count_of(slab, j);
         const float d = affinity(vey[j], vex[j], vsy[j], vsx[j], s_tab[kCY][m], s_tab[kCX][m]);
         const float pred = fminf(fmaxf(d, kEps), 1.0f - kEps);
         const bool win = in_window(s_tab, m, (float)t.row, (float)(t.col + j));
         if (win) {
-          acc[1] += logf(1.0f - pred) * pred * pred * s_lut[rv[j]];
-          if (cv[j] > 0.0f) {
+          acc[1] += logf(1.0f - pred) * pred * pred * s_lut[r2_of(slab, j)];
+          if (cv > 0.0f) {
             acc[0] += logf(pred) * (1.0f - pred) * (1.0f - pred);
             acc[2] += 1.0f;
           }
         }
-        acc[3] += cv[j] * fabsf(d - dmax[j]);
+        acc[3] += cv * fabsf(d - dmax[j]);
       }
     }
     for (int k = 0; k < 4; ++k)
@@ -219,17 +224,6 @@ __global__ void ae_reduce_kernel(const float* __restrict__ partial,  // [B, ntil
   float s = 0.0f;
   for (int tl = 0; tl < ntiles; ++tl) s += partial[(((size_t)b * ntiles + tl) * M + m) * 4 + k];
   out[((size_t)k * B + b) * M + m] = s;
-}
-
-// K4's slab words at 4 adjacent pixels: (r2 bytes, cnt halves 0-1, 2-3).
-__device__ __forceinline__ uint3 load_slab(const uint8_t* __restrict__ r2,
-                                           const uint16_t* __restrict__ cnt, size_t o) {
-  const uint2 c = *reinterpret_cast<const uint2*>(cnt + o);
-  return make_uint3(*reinterpret_cast<const uint32_t*>(r2 + o), c.x, c.y);
-}
-
-__device__ __forceinline__ float count_of(const uint3& slab, int j) {
-  return (float)(((j < 2 ? slab.y : slab.z) >> (16 * (j % 2))) & 0xFFFFu);
 }
 
 // A block of kBwdThreads threads covers kBwdThreads * 4 / kTileW rows of one
@@ -333,9 +327,9 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
       const float tv = affinity(vey[j], vex[j], vsy[j], vsx[j], cy, cx);
       if (!(tv >= kEps && tv <= 1.0f - kEps)) continue;  // clipped: pass_g = 0
       const float tc = tv, one_m = 1.0f - tc;
-      // one reciprocal for both divisions: 1/tc = one_m*inv, 1/(1-tc) = tc*inv
-      const float inv = __fdividef(1.0f, tc * one_m);
-      const float neg4 = s_lut[(slab.x >> (8 * j)) & 0xFFu];
+      // one IEEE reciprocal for both divisions: 1/tc = one_m*inv, 1/(1-tc) = tc*inv
+      const float inv = __frcp_rn(tc * one_m);
+      const float neg4 = s_lut[r2_of(slab, j)];
       const float dneg_dt = neg4 * (2.0f * tc * logf(one_m) - tc * tc * (tc * inv));
       const float dpos_dt = cv > 0.0f
           ? one_m * one_m * (one_m * inv) - 2.0f * one_m * logf(tc) : 0.0f;

@@ -35,6 +35,7 @@ from instance_segmentation_torch.kernels.rasterize import u16_to_i32
 EPS = 1e-4
 TILE_H, TILE_W = 16, 64          # the kernels' tile; csrc/ae_terms.cu kTileH/kTileW
 MAX_M = 128
+PRESENCE_WORDS = MAX_M // 32     # a tile's presence: one 16-byte load in the kernels
 CY, CX, LT0, LT1, RB0, RB1, VALID = range(7)
 launches = {"ae_terms_fwd": 0, "ae_terms_bwd": 0}
 
@@ -60,21 +61,17 @@ def num_tiles(h: int, w: int) -> Tuple[int, int]:
     return -(-h // TILE_H), -(-w // TILE_W)
 
 
-def presence_words(m: int) -> int:
-    """Words of a tile's presence bitmask: 4 (128 instances, one 16-byte load
-    in the kernels) for every 128 instances."""
-    return 4 * -(-m // MAX_M)
-
-
 def tile_presence(points: torch.Tensor, pt_valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """int32 [B, ntiles, presence_words(M)]: bit m % 32 of word m // 32 set
+    """int32 [B, ntiles, PRESENCE_WORDS]: bit m % 32 of word m // 32 set
     where instance m has a valid sample (clipped as the rasterizer clips it)
     in the tile, the reference's ``_any_points_from_points`` at this kernel's
-    tile shape as a bitmask. No host sync: invalid samples go to a spare
-    slot."""
+    tile shape as a bitmask; M <= MAX_M. No host sync: invalid samples go to
+    a spare slot."""
     B, M, _, _ = points.shape
+    if M > MAX_M:
+        raise ValueError(f"the tile presence holds at most {MAX_M} instances, got {M}")
     nh, nw = num_tiles(h, w)
-    nbits = presence_words(M) * 32
+    nbits = PRESENCE_WORDS * 32
     dev = points.device
     ty = points[..., 0].clamp(0, h - 1).long() // TILE_H
     tx = points[..., 1].clamp(0, w - 1).long() // TILE_W
@@ -146,7 +143,7 @@ def _check(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[int, int, int, int]
                                   ("sx", sx, f32, bhw), ("r2", r2, torch.uint8, bmhw),
                                   ("cnt", cnt, torch.uint16, bmhw), ("tab", tab, f32, (B, M, 8)),
                                   ("lut", lut, f32, (256,)),
-                                  ("cntp", cntp, torch.int32, (B, nh * nw, presence_words(M)))):
+                                  ("cntp", cntp, torch.int32, (B, nh * nw, PRESENCE_WORDS))):
         if t.dtype != dtype or t.shape != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
     dev = ey.device

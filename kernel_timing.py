@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Device time of the port's own kernels, apart from their Python wrappers.
+
+Every kernel of ``instance_segmentation_torch`` is launched by a C entry
+point of a library that ``kernels/build.py``'s ``load`` returns. ``hook``
+makes ``load`` hand out entry points that can repeat themselves: inside
+``own_ms(fn)`` each launch that ``fn`` makes (an entry-point call that
+returns 0) is made ``ITERS`` times more on the same inputs, queued behind a
+device wait and timed between two CUDA events (``queued_ms``). The wrapper
+prepares the inputs once, outside the timing. ``kernels_per_call`` counts
+the device kernels one call launches, PyTorch's included. ``chip_smoke.py``
+times its kernels with these.
+
+    python3 kernel_timing.py DIR
+
+takes a checkout from before this module (a parent commit unpacked with
+``git archive``, say) whose ``chip_smoke.py`` gives no kernel's own time.
+It runs that ``chip_smoke.py``'s kernel phases (3, 7 and 10) on its own
+package, with the hook, on one CUDA device. Before each line that prints a
+wrapper time it prints one ``[own]`` line: the kernels' own time, measured
+as above, and the device kernels a call launches. A checkout with this
+module needs no such help: run its ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import torch
+
+ITERS = 20
+# the port's kernels, by name, for telling them from PyTorch's in a profile
+PORT_KERNELS = ("affinity_kernel", "cnt_r2_kernel", "minr2_kernel", "nmap_kernel",
+                "nmap_bin_kernel", "nmap_band_kernel", "ae_fwd_kernel", "ae_reduce_kernel",
+                "ae_bwd_kernel")
+_replays = None                  # inside own_ms: the device ms of each launch
+
+
+def queued_ms(fn, iters: int = ITERS) -> float:
+    """Device time per call of everything ``fn`` launches, with no host gap:
+    the ``iters`` calls are queued behind a 20 ms device wait and timed
+    between two CUDA events recorded after the wait and after the calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+class _Entry:
+    """A C entry point (a ctypes function) that, inside ``own_ms``, repeats
+    each of its launches that succeeded and records their device time."""
+
+    def __init__(self, fn):
+        object.__setattr__(self, "_fn", fn)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):          # argtypes, restype
+        setattr(self._fn, name, value)
+
+    def __call__(self, *args):
+        err = self._fn(*args)
+        if _replays is not None and err == 0:
+            def again():
+                if self._fn(*args) != 0:
+                    raise RuntimeError("a repeated kernel launch failed")
+            _replays.append(queued_ms(again))
+        return err
+
+
+class _Library:
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return _Entry(getattr(self._lib, name))
+
+
+def hook(build) -> None:
+    """Make ``build.load`` (of a port's ``kernels/build.py``) return
+    libraries whose entry points ``own_ms`` can time; call it before any
+    kernel wrapper runs (the wrappers keep the entry points they get)."""
+    load = build.load
+    build.load = lambda name: _Library(load(name))
+
+
+def own_ms(fn):
+    """(device ms of the port's launches in one call of ``fn``, how many
+    launches it made): each launch repeated ``ITERS`` times, queued."""
+    global _replays
+    _replays = []
+    try:
+        fn()
+    finally:
+        times, _replays = _replays, None
+    return sum(times), len(times)
+
+
+def kernels_per_call(fn, calls: int = 10):
+    """(device activities per call of ``fn``, of which the port's kernels):
+    one ``torch.profiler`` window over ``calls`` calls after a warm-up.
+    Every kernel counts, PyTorch's included, and every memset and copy."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = sum(any(k in e.name for k in PORT_KERNELS) for e in device)
+    return round(len(device) / calls), round(own / calls)
+
+
+def main() -> None:
+    tree = Path(sys.argv[1]).resolve()
+    if (tree / "kernel_timing.py").exists():
+        raise SystemExit(f"{tree}'s chip_smoke.py times its kernels itself: run it")
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", tree / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    hook(smoke.build)
+    wrapper_ms = smoke.cuda_median_ms
+
+    def timed(fn, iters: int = 20) -> float:
+        ms = wrapper_ms(fn, iters)
+        own, n = own_ms(fn)
+        if n:
+            total, port = kernels_per_call(fn)
+            print(f"[own] {own:.4f} ms in {n} launches a call (queued, {ITERS} each); "
+                  f"{total} device kernels a call ({port} the port's)", flush=True)
+        return ms
+
+    smoke.cuda_median_ms = timed
+    dev = smoke.require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[1] {tree}: device {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{smoke.nvidia_smi_name_power()}", flush=True)
+    smoke.build.build_all(smoke.KERNELS)
+    for kernel in smoke.KERNELS:
+        smoke.build.load(kernel)
+    smoke.phase_affinity(dev)
+    smoke.phase_train_kernels(dev)
+    smoke.phase_minr2(dev)
+
+
+if __name__ == "__main__":
+    main()

@@ -353,6 +353,12 @@ def test_tile_presence_bits_are_the_dense_pairs(m):
         assert all(torch.equal(a, c) for a, c in zip(terms[0], other))
 
 
+def test_tile_presence_refuses_more_instances_than_its_words_hold():
+    pts = torch.zeros((1, tae.MAX_M + 1, 4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most"):
+        tae.tile_presence(pts, torch.ones(pts.shape[:3], dtype=torch.bool), 16, 64)
+
+
 # ---- the losses ----------------------------------------------------------------------
 
 def _jax_heads(planes, reg, cls):
