@@ -75,7 +75,6 @@ import time
 import numpy as np
 import torch
 
-import kernel_timing
 from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
@@ -86,6 +85,7 @@ from instance_segmentation_torch.serve import Predictor
 from instance_segmentation_torch.tools import fullres_demo
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
+import kernel_timing
 
 AFFINITY_SHAPE = (8, 20000, 96)          # B, K (kp_th), D (max_dets)
 TRAIN_SHAPE = (8, 96, 1024, 512, 1024)   # B, M, P, H, W: bench.py's train cell
