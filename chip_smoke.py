@@ -22,10 +22,11 @@ Phases, one result line each; any failure raises and exits non-zero:
      (B=8, M=96, P=1024, 512x1024; bench.py's 16 octagons per image plus a
      border-clipped instance and an image with no labels): K2 bitwise, K5
      bitwise against its twin on the CPU and across two launches (and to
-     rtol 1e-5 against the twin on the card), K3 to rtol 1e-5, K4 to 1e-4
-     of max|g| (its autograd twin at B=2); wrapper and twin times (CUDA
-     events) beside each kernel's bound, and K5's yardstick, one
-     ``index_add_`` of the masked normals;
+     rtol 1e-5 against the twin on the card), K3 to rtol 1e-5 and bitwise
+     across two launches, K4 to 1e-4 of max|g| (its autograd twin at B=2);
+     wrapper and twin times (CUDA events) beside each kernel's bound, K3's
+     time split by device kernel, and K5's yardstick, one ``index_add_`` of
+     the masked normals;
   8. the training slice: a ``Trainer`` with EfficientSeg-B3, bf16 compute and
      float32 master weights, 512x1024, batch 8, M=96, P=1024, Adam 2e-5,
      seeded untrained weights: 1 warm-up step, then 5 timed steps through
@@ -37,8 +38,10 @@ Phases, one result line each; any failure raises and exits non-zero:
  10. K6 (``csrc/rasterize.cu``, built in phase 6) against its twin, bitwise,
      at the train cell (B=8, M=96, 512x1024, the count map of phase 7's
      labels), at the full-resolution shape (B=1, M=96, P=1024, 1024x2048,
-     ``fullres_batch``) and on a slab with counts but no valid sample;
-     kernel and twin times beside the bound; at 1024x2048 also K5, K3 and
+     ``fullres_batch``), on a slab with counts but no valid sample and on
+     edge shapes (bands and count vectors ending raggedly, samples on the
+     borders, padding only); kernel and twin times beside the bound, and
+     the kernel alone with every slab padding; at 1024x2048 also K5, K3 and
      K4 against their twins on the count route's (cnt, r2), to phase 7's
      tolerances (K4's autograd twin at B=1), and the two routes to
      (cnt, r2), K2 alone against the count map then K6, timed;
@@ -325,8 +328,9 @@ def phase_slice(dev: torch.device, smi: str) -> int:
 
 
 def visited_tiles(tab: torch.Tensor, cntp: torch.Tensor, h: int, w: int):
-    """(tile-instance pairs K3/K4 visit, tiles holding samples): the kernels'
-    skip rule, for their byte and operation counts."""
+    """(tile-instance pairs K3/K4 visit, tiles holding samples, tiles with at
+    least one visited pair): the kernels' skip rule, for their byte and
+    operation counts."""
     nh, nw = ae_terms.num_tiles(h, w)
     r0 = (torch.arange(nh, device=tab.device) * ae_terms.TILE_H).view(nh, 1).float()
     c0 = (torch.arange(nw, device=tab.device) * ae_terms.TILE_W).view(1, nw).float()
@@ -335,7 +339,9 @@ def visited_tiles(tab: torch.Tensor, cntp: torch.Tensor, h: int, w: int):
            & (t[:, :, ae_terms.RB0] > r0) & (t[:, :, ae_terms.LT1] < c0 + ae_terms.TILE_W)
            & (t[:, :, ae_terms.RB1] > c0))
     present = ae_terms.presence_dense(cntp, tab.shape[1])
-    return int((win.flatten(2) | present).sum()), int(present.any(dim=1).sum())
+    visited = win.flatten(2) | present
+    return (int(visited.sum()), int(present.any(dim=1).sum()),
+            int(visited.any(dim=1).sum()))
 
 
 def phase_train_kernels(dev: torch.device) -> list:
@@ -448,31 +454,36 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     cntp = ae_terms.tile_presence(t.points, t.pt_valid, h, w)
     rest = (r2, cnt, tab, lut, cntp)
     k3 = ae_terms.ae_terms_fwd(*fields, *rest)
+    again = ae_terms.ae_terms_fwd(*fields, *rest)
     with torch.no_grad():
         p3 = ae_terms.ae_terms_plain(*fields, *rest)
     torch.cuda.synchronize()
     err = max(float((a - c).abs().max()) for a, c in zip(k3, p3))
-    for name, a, c in zip(("pos", "neg", "npos", "pull"), k3, p3):
+    for name, a, c, a2 in zip(("pos", "neg", "npos", "pull"), k3, p3, again):
         check(torch.allclose(a, c, rtol=1e-5, atol=0.0),
               f"K3 {name} differs from its twin by {float((a - c).abs().max())}")
+        check(torch.equal(bits(a), bits(a2)), f"two launches of K3 differ in {name}")
     ms = cuda_median_ms(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
     with torch.no_grad():
         plain_ms = cuda_median_ms(lambda: ae_terms.ae_terms_plain(*fields, *rest))
     alone = own_time(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
-    pairs, any_tiles = visited_tiles(tab, cntp, h, w)
+    split = kernel_timing.device_split(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
+    pairs, any_tiles, tiles = visited_tiles(tab, cntp, h, w)
     tile_px = ae_terms.TILE_H * ae_terms.TILE_W
     n_valid = int(t.inst_valid.sum()) // b
-    # reads the 4 fields once and 3 B per pixel of each visited (tile,
-    # instance) slab; per visited pixel ~21 operations (affinity 9, clip 2,
-    # neg term 6, pull 4), per pixel of a sample tile and valid center 10
-    # (dmax)
+    # reads the 4 fields in the tiles with a visited pair (the others are
+    # skipped whole) and 3 B per pixel of each visited (tile, instance)
+    # slab; per visited pixel ~21 operations (affinity 9, clip 2, neg term 6,
+    # pull 4), per pixel of a sample tile and valid center 10 (dmax)
     table_bytes = b * m * 8 * 4 + 256 * 4 + cntp.numel() * 4
-    bound_ms, bound_by = bound(4 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
+    bound_ms, bound_by = bound(4 * tiles * tile_px * 4 + pairs * tile_px * 3 + table_bytes,
                                pairs * tile_px * 21 + any_tiles * tile_px * n_valid * 10)
     print(f"[{phase}] K3 ae_terms forward {where}: {pairs} (tile, instance) pairs visited of "
-          f"{b * m * cntp.shape[1]}, {any_tiles} sample tiles; max|kernel - twin| {err:.3g} "
-          f"(rtol 1e-5); wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); {own_text(alone)}", flush=True)
+          f"{b * m * cntp.shape[1]}, {tiles} tiles of {b * cntp.shape[1]} visited, {any_tiles} "
+          f"sample tiles; max|kernel - twin| {err:.3g} (rtol 1e-5), bitwise equal across two "
+          f"launches; wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); {own_text(alone)}; device split "
+          f"{', '.join(f'{k} {v:.4f} ms' for k, v in split.items())}", flush=True)
     records.append({"name": "ae_terms_fwd", "route": "cuda",
                     "source": "instance_segmentation_torch/csrc/ae_terms.cu",
                     "replaces": "instance_segmentation_tpu/losses/ae_pallas.py:325",
@@ -631,6 +642,8 @@ def phase_minr2(dev: torch.device) -> dict:
         ms = cuda_median_ms(lambda: minr2.minr2_from_cnt(cnt, has))
         plain_ms = cuda_median_ms(lambda: minr2.minr2_from_cnt_plain(cnt, has))
         alone = own_time(lambda: minr2.minr2_from_cnt(cnt, has))
+        padding = torch.zeros_like(has)
+        fill_ms, _ = kernel_timing.own_ms(lambda: minr2.minr2_from_cnt(cnt, padding))
         live = int(has.sum())
         # reads the live slabs' counts (2 B/px) and has, writes r2 for every
         # slab (1 B/px); its work is integer min, no float32 operations
@@ -638,7 +651,7 @@ def phase_minr2(dev: torch.device) -> dict:
         print(f"[10] K6 minr2_from_cnt {name} B,M,P,H,W={(b, m, p, h, w)} ({live} of {b * m} "
               f"slabs live): bitwise equal to the twin; wrapper {ms:.4f} ms, twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median of 20); "
-              f"{own_text(alone)}", flush=True)
+              f"{own_text(alone)}; alone with every slab padding {fill_ms:.4f} ms", flush=True)
         # the record keeps the last case, the full-resolution shape of phase 11
         record = {"name": "minr2_from_cnt", "route": "cuda",
                   "source": "instance_segmentation_torch/csrc/rasterize.cu",
@@ -662,6 +675,9 @@ def phase_minr2(dev: torch.device) -> dict:
           "K6: a slab with counts but has == 0 is not all 200")
     print(f"[10] K6 slab (0, {slot}) with counts but has == 0: all 200, equal to the twin",
           flush=True)
+    for shape, what in minr2_edge_cases(dev):
+        print(f"[10] K6 edge shape B,M,H,W={shape}, {what}: bitwise equal to the twin",
+              flush=True)
 
     # the two routes to (cnt, r2) at 1024x2048
     def count_route():
@@ -677,6 +693,33 @@ def phase_minr2(dev: torch.device) -> dict:
     print(f"[10] (cnt, r2) at B,M,P,H,W={FULLRES_SHAPE}: K2 alone {k2_ms:.4f} ms, count map "
           f"+ K6 {cr_ms:.4f} ms (median of 20; the same maps bitwise)", flush=True)
     return record
+
+
+def minr2_edge_cases(dev: torch.device):
+    """K6 against its twin, bitwise, where its bands and vectors end
+    raggedly: H not a multiple of ``minr2.BAND_H``, W a multiple of 4 (and
+    of 8) but not of ``minr2.BAND_W``, samples on all four borders, a slab
+    with counts but has == 0, and a batch of padding only. Returns (shape,
+    what) for each case checked."""
+    rng = np.random.default_rng(7)
+    done = []
+    for b, m, h, w in ((2, 5, 70, 260), (1, 3, 130, 200), (3, 2, 64, 132)):
+        cnt = (rng.uniform(size=(b, m, h, w)) < 0.002) * rng.integers(1, 4, (b, m, h, w))
+        cnt[0, 0, [0, h - 1], :] = 1                     # the top and bottom rows
+        cnt[0, 0, :, [0, w - 1]] = 2                     # the left and right columns
+        cnt_t = torch.from_numpy(cnt.astype(np.int16)).to(dev).view(torch.uint16)
+        has = torch.from_numpy(cnt.reshape(b, m, -1).any(-1)).to(dev)
+        has[-1, -1] = False                              # counts, but no valid sample
+        for flags, what in ((has, f"{int(has.sum())} of {b * m} slabs live, samples on the "
+                             "four borders, a slab with counts but has == 0"),
+                            (torch.zeros_like(has), "every slab padding")):
+            got = minr2.minr2_from_cnt(cnt_t, flags)
+            want = minr2.minr2_from_cnt_plain(cnt_t, flags)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K6 differs from its twin at B,M,H,W={(b, m, h, w)}, "
+                  f"{what}")
+            done.append(((b, m, h, w), what))
+    return done
 
 
 def phase_fullres_slice(smi: str) -> int:

@@ -17,29 +17,41 @@
 // d/d(ey, ex, sy, sx), routing each pixel's dmax cotangent to its first-max
 // center (strict '>' in index order), as the TPU kernel does.
 //
-// What bounds them on the card: bytes. Each reads the four f32 fields once
-// (16 B per pixel, 67 MB at B=8, 512x1024) and, for each (tile, instance)
-// pair it cannot skip, 3 B per pixel of the cnt/r2 slabs; K4 writes 16 B per
-// pixel. Work goes by 16 x 64 tiles (4 adjacent pixels a thread, vector
-// loads). An instance is visited in a tile only where its window overlaps
-// the tile or it has samples there (the presence bitmask from the point
-// list, [B, ntiles, 4] words, bit m for instance m), the TPU kernel's skip
-// rule, so the ~805 MB count map is read only where it matters; dmax is
-// computed only in tiles holding samples. K3 gives a block one tile and
-// writes one partial per (tile, instance); a second kernel sums the tiles in
-// a fixed order: no float atomics, the result is deterministic.
+// What bounds them on the card: less the bytes than the issue of their
+// arithmetic (per visited pixel and instance an expf, one or two logf and
+// the focal products, some 80 instructions) and the latency of dependent
+// loads. Work goes by 16 x 64 tiles (4 adjacent pixels a thread, vector loads). An
+// instance is visited in a tile only where its window overlaps the tile or
+// it has samples there (the presence bitmask from the point list, [B,
+// ntiles, 4] words, bit m for instance m), the TPU kernel's skip rule, so the
+// ~805 MB count map is read only where it matters. Both kernels stage their
+// image's valid instances once per block, compacted in index order
+// (stage_instances), decide the visits by one test uniform across the block
+// (visits), run the focal pass first with the next visited instance's slab
+// loaded before this one's arithmetic, mark there the pixels holding a
+// sample, and compute dmax (first_max) and the pull term at those pixels
+// only: cnt is 0 everywhere else, so the pull lives there alone. Such pixels
+// are few, so first_max spreads a warp's marked pixels over its lanes and
+// walks the centers once for them all. Each block loads its tile's presence
+// words before the staging and each table row in two 16-byte loads.
+//
+// K3 gives a block one tile. A tile that no instance visits reads no field
+// and writes nothing. Each warp reduces an instance's sums with shuffles into
+// shared memory, no block-wide barrier per instance; one barrier at the end
+// sums the warps in a fixed order and writes one partial per visited (tile,
+// instance) pair, [B, M, ntiles] float4. A second kernel gives each (image,
+// instance) a block that walks its tiles contiguously, adds the partials of
+// the tiles the same test visits (so unvisited pairs need no zeros) and sums
+// its threads in a fixed tree: no float atomics, the same bits every launch.
+// The four sums go to four [B, M] outputs the wrapper allocates: no PyTorch
+// kernel runs inside the call.
 //
 // K4's blocks are smaller (128 threads, half a tile, 80 registers so six
 // blocks fit an SM): it is bound by the latency of its dependent loads more
-// than by its arithmetic. A block stages its image's valid instances once,
-// compacted in index order (center, window, the three cotangents), so its
-// passes run over the valid instances only; it reads the tile's presence in
-// one 16-byte load. The focal pass comes first and needs no dmax: it loads
-// the next visited instance's slab before this one's arithmetic, shares one
-// IEEE reciprocal between the two divisions of the focal derivatives and marks
-// the pixels holding samples. dmax, its first-max center and the pull term
-// are computed at those pixels only, the only ones where the pull has a
-// gradient. Every pixel's gradient is written by one thread, no atomics.
+// than by its arithmetic. It stages the three cotangents beside the table,
+// shares one IEEE reciprocal between the two divisions of the focal
+// derivatives, and routes the dmax cotangent to the first max. Every pixel's
+// gradient is written by one thread, no atomics.
 //
 // The affinity is computed with __fmul_rn/__fadd_rn everywhere it appears so
 // that the forward, dmax and the backward see the same bits; expf/logf are
@@ -50,17 +62,22 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                    // K3's block: one tile
+constexpr int kWarps = kThreads / 32;
 constexpr int kTileH = 16;
 constexpr int kTileW = 64;                       // 16 threads x 4 columns
 constexpr int kMaxM = 128;
 constexpr float kEps = 1e-4f;
 enum { kCY, kCX, kLT0, kLT1, kRB0, kRB1, kValid };   // fields of a table row
 constexpr int kTabW = 8;                         // floats per table row (one unused)
+constexpr int kSumThreads = 256;                 // K3's cross-tile sum: a block per (b, m)
 constexpr int kBwdThreads = 128;                 // K4's block
 constexpr int kBwdMinBlocks = 6;                 // K4: blocks an SM should hold
+constexpr unsigned kFull = 0xffffffffu;
 static_assert(kMaxM == 4 * 32, "a tile's presence is one uint4 (4 words of 32 instances)");
-static_assert(kBwdThreads >= kMaxM, "K4 stages the table one entry a thread");
+static_assert(kThreads == kTileH * kTileW / 4, "K3: a thread per 4 pixels of its tile");
+static_assert(kThreads >= kMaxM && kBwdThreads >= kMaxM,
+              "stage_instances takes one table entry a thread");
 
 __device__ __forceinline__ float affinity(float ey, float ex, float sy, float sx,
                                           float cy, float cx) {
@@ -76,42 +93,113 @@ __device__ __forceinline__ bool present(const uint4& w, int m) {
   return (word >> (m % 32)) & 1u;
 }
 
-// K3's set-up, a block per tile: the image's instance table, the (1-g)^4
-// table, and which instances this tile visits.
-struct Tile {
-  int b, tile, ntiles, r0, c0, row, col;
-  bool ok;
+// Whether a block covering rows [r0, r0 + rows) and columns [c0, c0 +
+// kTileW) visits an instance with window (lt, rb): the window overlaps them,
+// or the instance has samples in the presence tile (pts). K3, its cross-tile
+// sum and K4 all decide by this test.
+__device__ __forceinline__ bool visits(float lt0, float lt1, float rb0, float rb1, int r0,
+                                       int rows, int c0, bool pts) {
+  return (lt0 < (float)(r0 + rows) && rb0 > (float)r0 && lt1 < (float)(c0 + kTileW) &&
+          rb1 > (float)c0) || pts;
+}
+
+// An image's valid instances, compacted in index order, and the (1-g)^4
+// table: what K3 and K4 stage once per block.
+struct Instances {
+  float cy[kMaxM], cx[kMaxM], lt0[kMaxM], lt1[kMaxM], rb0[kMaxM], rb1[kMaxM];
+  int slot[kMaxM];                               // entry k's instance index
+  int count[kMaxM / 32];
+  float lut[256];
 };
 
-__device__ Tile tile_setup(const float* __restrict__ tab, const float* __restrict__ lut,
-                           const uint4* __restrict__ cntp, int M, int H, int W,
-                           float (*s_tab)[kMaxM], float* s_lut, uint8_t* s_hit,
-                           int* s_any) {
-  Tile t;
-  t.b = blockIdx.z;
-  t.ntiles = gridDim.x * gridDim.y;
-  t.tile = blockIdx.y * gridDim.x + blockIdx.x;
-  t.r0 = blockIdx.y * kTileH;
-  t.c0 = blockIdx.x * kTileW;
-  t.row = t.r0 + threadIdx.x / (kTileW / 4);
-  t.col = t.c0 + (threadIdx.x % (kTileW / 4)) * 4;
-  t.ok = t.row < H && t.col < W;                 // W % 4 == 0
-  if (threadIdx.x == 0) *s_any = 0;
-  for (int i = threadIdx.x; i < 256; i += kThreads) s_lut[i] = lut[i];
-  for (int i = threadIdx.x; i < M * kTabW; i += kThreads)
-    s_tab[i % kTabW][i / kTabW] = tab[(size_t)t.b * M * kTabW + i];
+// Called by every thread of the block (blockDim.x >= kMaxM, whole warps);
+// ends in a barrier. Valid instance m becomes entry k, its rank among the
+// valid ones; extra(k, m) stages a kernel's own fields of it. Returns the
+// number of valid instances.
+template <class Extra>
+__device__ __forceinline__ int stage_instances(const float* __restrict__ tab,
+                                               const float* __restrict__ lut, int b, int M,
+                                               Instances& s, Extra extra) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 256; i += blockDim.x) s.lut[i] = lut[i];
+  // the whole row in two 16-byte loads, before its valid flag is known
+  float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+  if (tid < M) {
+    const float4* row = reinterpret_cast<const float4*>(tab + ((size_t)b * M + tid) * kTabW);
+    lo = row[0];
+    hi = row[1];
+  }
+  static_assert(kCY == 0 && kLT1 == 3 && kValid == 6 && kTabW == 8, "the row's layout");
+  const bool valid = hi.z > 0.0f;                // kValid
+  const unsigned ballot = __ballot_sync(kFull, valid);
+  if (tid < kMaxM && tid % 32 == 0) s.count[tid / 32] = __popc(ballot);
   __syncthreads();
-  const uint4 words = cntp[(size_t)t.b * t.ntiles + t.tile];
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    const bool pts = present(words, m);
-    const bool win = s_tab[kValid][m] > 0.0f && s_tab[kLT0][m] < (float)(t.r0 + kTileH) &&
-                     s_tab[kRB0][m] > (float)t.r0 && s_tab[kLT1][m] < (float)(t.c0 + kTileW) &&
-                     s_tab[kRB1][m] > (float)t.c0;
-    s_hit[m] = pts || win;
-    if (pts) *s_any = 1;
+  if (valid) {
+    int k = __popc(ballot & ((1u << (tid % 32)) - 1u));
+    for (int v = 0; v < tid / 32; ++v) k += s.count[v];
+    s.cy[k] = lo.x;
+    s.cx[k] = lo.y;
+    s.lt0[k] = lo.z;
+    s.lt1[k] = lo.w;
+    s.rb0[k] = hi.x;
+    s.rb1[k] = hi.y;
+    s.slot[k] = tid;
+    extra(k, tid);
   }
   __syncthreads();
-  return t;
+  int nv = 0;
+  for (int v = 0; v < kMaxM / 32; ++v) nv += s.count[v];
+  return nv;
+}
+
+// dmax over the staged centers and its first max (strict '>' in index
+// order; -1 where no center gives more than 0) at the pixels marked need.
+// The warp's marked pixels, in (j, lane) order, are spread over its lanes,
+// one a lane per round (the fields come from their owner lanes by shuffles,
+// the results go back the same way): a pixel holding a sample is rare, so
+// one round usually does what four divergent passes over j would.
+__device__ __forceinline__ void first_max(const Instances& s, int nv, const float* vey,
+                                          const float* vex, const float* vsy, const float* vsx,
+                                          const bool* need, float* dmax, int* amax) {
+  const int lane = threadIdx.x % 32;
+  unsigned marked[4];
+  int base[4], total = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    marked[j] = __ballot_sync(kFull, need[j]);
+    base[j] = total;
+    total += __popc(marked[j]);
+    dmax[j] = 0.0f;
+    amax[j] = -1;
+  }
+  for (int r = 0; r < total; r += 32) {          // uniform across the warp
+    const int q = r + lane;                      // the marked pixel this lane takes
+    const int jq = (q >= base[1]) + (q >= base[2]) + (q >= base[3]);
+    const bool mine = q < total;
+    const int owner = mine ? (int)__fns(marked[jq], 0u, q - base[jq] + 1) : 0;
+    float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};       // ey, ex, sy, sx at that pixel
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float fy = __shfl_sync(kFull, vey[j], owner), fx = __shfl_sync(kFull, vex[j], owner);
+      const float gy = __shfl_sync(kFull, vsy[j], owner), gx = __shfl_sync(kFull, vsx[j], owner);
+      if (j == jq) { e[0] = fy; e[1] = fx; e[2] = gy; e[3] = gx; }
+    }
+    float best = 0.0f;
+    int arg = -1;
+    if (mine) {
+      for (int k = 0; k < nv; ++k) {
+        const float d = affinity(e[0], e[1], e[2], e[3], s.cy[k], s.cx[k]);
+        if (d > best) { best = d; arg = k; }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {                // back to the owners
+      const int src = base[j] + __popc(marked[j] & ((1u << lane) - 1u)) - r;
+      const float got = __shfl_sync(kFull, best, src & 31);
+      const int at = __shfl_sync(kFull, arg, src & 31);
+      if (need[j] && src >= 0 && src < 32) { dmax[j] = got; amax[j] = at; }
+    }
+  }
 }
 
 __device__ __forceinline__ void load4(const float* __restrict__ p, size_t o, bool ok,
@@ -139,12 +227,12 @@ __device__ __forceinline__ int r2_of(const uint3& slab, int j) {
   return (slab.x >> (8 * j)) & 0xFFu;
 }
 
-__device__ __forceinline__ bool in_window(const float (*s_tab)[kMaxM], int m, float r,
-                                          float c) {
-  return s_tab[kValid][m] > 0.0f && r >= s_tab[kLT0][m] && r < s_tab[kRB0][m] &&
-         c >= s_tab[kLT1][m] && c < s_tab[kRB1][m];
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return v;                                      // complete in lane 0
 }
 
+// K3: a block per 16 x 64 tile, 4 adjacent pixels a thread.
 __global__ void __launch_bounds__(kThreads)
 ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
               const float* __restrict__ sy, const float* __restrict__ sx,   // [B, H, W]
@@ -153,77 +241,149 @@ ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
               const float* __restrict__ lut,     // [256]
               const uint4* __restrict__ cntp,    // [B, ntiles]: presence bits
               int M, int H, int W,
-              float* __restrict__ partial) {     // [B, ntiles, M, 4]
-  __shared__ float s_tab[kTabW][kMaxM];
-  __shared__ float s_lut[256];
-  __shared__ uint8_t s_hit[kMaxM];
-  __shared__ int s_any;
-  __shared__ float s_red[kThreads / 32][4];
-  const Tile t = tile_setup(tab, lut, cntp, M, H, W, s_tab, s_lut, s_hit, &s_any);
-  float* out = partial + ((size_t)t.b * t.ntiles + t.tile) * M * 4;
-  for (int i = threadIdx.x; i < M * 4; i += kThreads)
-    if (!s_hit[i / 4]) out[i] = 0.0f;
+              float4* __restrict__ partial) {    // [B, M, ntiles]: visited pairs only
+  __shared__ Instances s;
+  __shared__ float4 s_part[kWarps][kMaxM];       // (pos, neg, npos, pull) per warp
+  const int b = blockIdx.y, tile = blockIdx.x, ntiles = gridDim.x, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int nw = (W + kTileW - 1) / kTileW;
+  const int r0 = (tile / nw) * kTileH, c0 = (tile % nw) * kTileW;
+  const int row = r0 + tid / (kTileW / 4), col = c0 + (tid % (kTileW / 4)) * 4;
+  const bool ok = row < H && col < W;            // W % 4 == 0: all 4 columns or none
+  const uint4 words = cntp[(size_t)b * ntiles + tile];   // in flight during the staging
+  const int nv = stage_instances(tab, lut, b, M, s, [](int, int) {});
+  auto hit = [&](int k) {                        // uniform across the block
+    return visits(s.lt0[k], s.lt1[k], s.rb0[k], s.rb1[k], r0, kTileH, c0,
+                  present(words, s.slot[k]));
+  };
+  int next = 0;
+  while (next < nv && !hit(next)) ++next;
+  if (next == nv) return;                        // no visit: no field read, nothing written
 
-  const size_t pix = ((size_t)t.b * H + t.row) * W + t.col;
+  const size_t pix = ((size_t)b * H + row) * W + col;
+  const size_t slab_pix = (size_t)row * W + col;
+  const size_t slabs = (size_t)b * M;
   float vey[4], vex[4], vsy[4], vsx[4];
-  load4(ey, pix, t.ok, vey); load4(ex, pix, t.ok, vex);
-  load4(sy, pix, t.ok, vsy); load4(sx, pix, t.ok, vsx);
+  load4(ey, pix, ok, vey); load4(ex, pix, ok, vex);
+  load4(sy, pix, ok, vsy); load4(sx, pix, ok, vsx);
+  uint3 slab_next = make_uint3(0u, 0u, 0u);
+  if (ok) slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
 
-  float dmax[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (s_any && t.ok) {
-    for (int m = 0; m < M; ++m) {
-      if (!(s_tab[kValid][m] > 0.0f)) continue;
-      for (int j = 0; j < 4; ++j)
-        dmax[j] = fmaxf(dmax[j], affinity(vey[j], vex[j], vsy[j], vsx[j],
-                                          s_tab[kCY][m], s_tab[kCX][m]));
-    }
-  }
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int m = 0; m < M; ++m) {
-    if (!s_hit[m]) continue;                     // uniform across the block
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};     // pos, neg, npos, pull
-    if (t.ok) {
-      const uint3 slab =
-          load_slab(r2, cnt, ((size_t)t.b * M + m) * H * W + (size_t)t.row * W + t.col);
-      for (int j = 0; j < 4; ++j) {
-        const float cv = count_of(slab, j);
-        const float d = affinity(vey[j], vex[j], vsy[j], vsx[j], s_tab[kCY][m], s_tab[kCX][m]);
-        const float pred = fminf(fmaxf(d, kEps), 1.0f - kEps);
-        const bool win = in_window(s_tab, m, (float)t.row, (float)(t.col + j));
-        if (win) {
-          acc[1] += logf(1.0f - pred) * pred * pred * s_lut[r2_of(slab, j)];
-          if (cv > 0.0f) {
-            acc[0] += logf(pred) * (1.0f - pred) * (1.0f - pred);
-            acc[2] += 1.0f;
-          }
-        }
-        acc[3] += cv * fabsf(d - dmax[j]);
+  // the focal pass over the visited instances, the next one's slab loaded
+  // before this one's arithmetic; it marks the pixels holding samples
+  bool need[4] = {false, false, false, false};
+  while (next < nv) {
+    const int k = next;
+    const uint3 slab = slab_next;
+    for (++next; next < nv && !hit(next); ++next) {}
+    if (next < nv && ok)
+      slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
+    const float lt1 = s.lt1[k], rb1 = s.rb1[k], cy = s.cy[k], cx = s.cx[k];
+    const bool row_in = ok && (float)row >= s.lt0[k] && (float)row < s.rb0[k];
+    float pos = 0.0f, neg = 0.0f;
+    int npos = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float cv = count_of(slab, j);
+      need[j] |= cv != 0.0f;
+      const float c = (float)(col + j);
+      if (!(row_in && c >= lt1 && c < rb1)) continue;   // outside the window
+      const float d = affinity(vey[j], vex[j], vsy[j], vsx[j], cy, cx);
+      const float pred = fminf(fmaxf(d, kEps), 1.0f - kEps);
+      neg += logf(1.0f - pred) * pred * pred * s.lut[r2_of(slab, j)];
+      if (cv > 0.0f) {
+        pos += logf(pred) * (1.0f - pred) * (1.0f - pred);
+        ++npos;
       }
     }
-    for (int k = 0; k < 4; ++k)
-      for (int s = 16; s > 0; s >>= 1) acc[k] += __shfl_down_sync(0xffffffffu, acc[k], s);
-    if (lane == 0)
-      for (int k = 0; k < 4; ++k) s_red[warp][k] = acc[k];
-    __syncthreads();
-    if (threadIdx.x < 4) {
-      float s = 0.0f;
-      for (int v = 0; v < kThreads / 32; ++v) s += s_red[v][threadIdx.x];
-      out[m * 4 + threadIdx.x] = s;
+    pos = warp_sum(pos);
+    neg = warp_sum(neg);
+    npos = __reduce_add_sync(kFull, npos);
+    if (lane == 0) s_part[warp][k] = make_float4(pos, neg, (float)npos, 0.0f);
+  }
+
+  // dmax at the pixels holding samples, then the pull of the instances
+  // with samples in the tile (their counts again, from the cache, the
+  // next one's loaded before this one's arithmetic)
+  float dmax[4];
+  int amax[4];
+  first_max(s, nv, vey, vex, vsy, vsx, need, dmax, amax);
+  next = 0;
+  while (next < nv && !present(words, s.slot[next])) ++next;
+  if (next < nv && ok) slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
+  while (next < nv) {
+    const int k = next;
+    const uint3 slab = slab_next;
+    for (++next; next < nv && !present(words, s.slot[next]); ++next) {}
+    if (next < nv && ok)
+      slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
+    const float cy = s.cy[k], cx = s.cx[k];
+    float pull = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float cv = count_of(slab, j);
+      if (!ok || cv == 0.0f) continue;
+      pull += cv * fabsf(affinity(vey[j], vex[j], vsy[j], vsx[j], cy, cx) - dmax[j]);
     }
-    __syncthreads();
+    pull = warp_sum(pull);
+    if (lane == 0) s_part[warp][k].w = pull;
+  }
+
+  // one barrier: the warps' sums, in warp order, one partial per visit
+  __syncthreads();
+  for (int k = tid; k < nv; k += kThreads) {
+    if (!hit(k)) continue;
+    float4 sum = s_part[0][k];
+    for (int v = 1; v < kWarps; ++v) {
+      const float4 q = s_part[v][k];
+      sum.x += q.x; sum.y += q.y; sum.z += q.z; sum.w += q.w;
+    }
+    partial[(slabs + s.slot[k]) * ntiles + tile] = sum;
   }
 }
 
-__global__ void ae_reduce_kernel(const float* __restrict__ partial,  // [B, ntiles, M, 4]
-                                 int B, int ntiles, int M,
-                                 float* __restrict__ out) {          // [4, B, M]
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * M * 4) return;
-  const int k = i % 4, m = (i / 4) % M, b = i / (4 * M);
-  float s = 0.0f;
-  for (int tl = 0; tl < ntiles; ++tl) s += partial[(((size_t)b * ntiles + tl) * M + m) * 4 + k];
-  out[((size_t)k * B + b) * M + m] = s;
+// K3's cross-tile sum: a block per (instance, image) walks the tiles in
+// order, adds the partials of the tiles that visit the instance (the test
+// of ae_fwd_kernel) and sums its threads in a fixed tree.
+__global__ void __launch_bounds__(kSumThreads)
+ae_sum_kernel(const float4* __restrict__ partial,  // [B, M, ntiles]
+              const float* __restrict__ tab,       // [B, M, 8]
+              const uint32_t* __restrict__ cntp,   // [B, ntiles, 4]: presence words
+              int M, int W, int ntiles,
+              float* __restrict__ pos, float* __restrict__ neg, float* __restrict__ npos,
+              float* __restrict__ pull) {          // [B, M] each
+  __shared__ float4 s_warp[kSumThreads / 32];
+  const int m = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const size_t bm = (size_t)b * M + m;
+  const float* entry = tab + bm * kTabW;
+  const int nw = (W + kTileW - 1) / kTileW;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (entry[kValid] > 0.0f) {                      // uniform: an invalid instance sums 0
+    const float lt0 = entry[kLT0], lt1 = entry[kLT1], rb0 = entry[kRB0], rb1 = entry[kRB1];
+    for (int t = tid; t < ntiles; t += kSumThreads) {
+      const bool pts = (cntp[((size_t)b * ntiles + t) * 4 + m / 32] >> (m % 32)) & 1u;
+      if (!visits(lt0, lt1, rb0, rb1, (t / nw) * kTileH, kTileH, (t % nw) * kTileW, pts))
+        continue;
+      const float4 q = partial[bm * ntiles + t];
+      acc.x += q.x; acc.y += q.y; acc.z += q.z; acc.w += q.w;
+    }
+  }
+  acc.x = warp_sum(acc.x);
+  acc.y = warp_sum(acc.y);
+  acc.z = warp_sum(acc.z);
+  acc.w = warp_sum(acc.w);
+  if (tid % 32 == 0) s_warp[tid / 32] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    float4 sum = s_warp[0];
+    for (int v = 1; v < kSumThreads / 32; ++v) {
+      sum.x += s_warp[v].x; sum.y += s_warp[v].y; sum.z += s_warp[v].z; sum.w += s_warp[v].w;
+    }
+    pos[bm] = sum.x;
+    neg[bm] = sum.y;
+    npos[bm] = sum.z;
+    pull[bm] = sum.w;
+  }
 }
 
 // A block of kBwdThreads threads covers kBwdThreads * 4 / kTileW rows of one
@@ -242,12 +402,8 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   constexpr int kRows = kBwdThreads * 4 / kTileW;
   constexpr int kParts = kTileH / kRows;         // blocks per presence tile
   static_assert(kTileH % kRows == 0, "a block's rows lie in one presence tile");
-  // the image's valid instances, compacted in index order
-  __shared__ float s_cy[kMaxM], s_cx[kMaxM], s_lt0[kMaxM], s_lt1[kMaxM], s_rb0[kMaxM],
-      s_rb1[kMaxM], s_gpos[kMaxM], s_gneg[kMaxM], s_gpull[kMaxM];
-  __shared__ int s_slot[kMaxM];
-  __shared__ float s_lut[256];
-  __shared__ int s_count[kMaxM / 32];
+  __shared__ Instances s;
+  __shared__ float s_gpos[kMaxM], s_gneg[kMaxM], s_gpull[kMaxM];
   const int b = blockIdx.y, tid = threadIdx.x;
   const int nw = (W + kTileW - 1) / kTileW;
   const int ntiles = nw * ((H + kTileH - 1) / kTileH);
@@ -255,43 +411,24 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   const int r0 = (tile / nw) * kTileH + (blockIdx.x % kParts) * kRows;
   const int c0 = (tile % nw) * kTileW;
   const int row = r0 + tid / (kTileW / 4), col = c0 + (tid % (kTileW / 4)) * 4;
-  for (int i = tid; i < 256; i += kBwdThreads) s_lut[i] = lut[i];
-  const bool valid = tid < M && tab[((size_t)b * M + tid) * kTabW + kValid] > 0.0f;
-  const unsigned ballot = __ballot_sync(0xffffffffu, valid);
-  if (tid < kMaxM && tid % 32 == 0) s_count[tid / 32] = __popc(ballot);
-  __syncthreads();
-  if (valid) {
-    int k = __popc(ballot & ((1u << (tid % 32)) - 1u));
-    for (int v = 0; v < tid / 32; ++v) k += s_count[v];
-    const float* entry = tab + ((size_t)b * M + tid) * kTabW;
-    s_cy[k] = entry[kCY];
-    s_cx[k] = entry[kCX];
-    s_lt0[k] = entry[kLT0];
-    s_lt1[k] = entry[kLT1];
-    s_rb0[k] = entry[kRB0];
-    s_rb1[k] = entry[kRB1];
-    s_gpos[k] = g_pos[(size_t)b * M + tid];
-    s_gneg[k] = g_neg[(size_t)b * M + tid];
-    s_gpull[k] = g_pull[(size_t)b * M + tid];
-    s_slot[k] = tid;
-  }
-  __syncthreads();
-  if (row >= H || col >= W) return;              // W % 4 == 0; no block-wide sync follows
-  int nv = 0;
-  for (int v = 0; v < kMaxM / 32; ++v) nv += s_count[v];
+  const uint4 words = cntp[(size_t)b * ntiles + tile];   // in flight during the staging
+  const int nv = stage_instances(tab, lut, b, M, s, [&](int k, int m) {
+    s_gpos[k] = g_pos[(size_t)b * M + m];
+    s_gneg[k] = g_neg[(size_t)b * M + m];
+    s_gpull[k] = g_pull[(size_t)b * M + m];
+  });
+  // W % 4 == 0: all 4 columns or none. A lane outside the image stays: the
+  // warp's shuffles in first_max need all its lanes.
+  const bool ok = row < H && col < W;
 
-  const uint4 words = cntp[(size_t)b * ntiles + tile];
   const size_t pix = ((size_t)b * H + row) * W + col;
   const size_t slab_pix = (size_t)row * W + col;
   float vey[4], vex[4], vsy[4], vsx[4];
-  load4(ey, pix, true, vey); load4(ex, pix, true, vex);
-  load4(sy, pix, true, vsy); load4(sx, pix, true, vsx);
-  // an instance is visited where its window overlaps the block's rows or it
-  // has samples in the tile (uniform across the block)
-  auto hit = [&](int k) {
-    return (s_lt0[k] < (float)(r0 + kRows) && s_rb0[k] > (float)r0 &&
-            s_lt1[k] < (float)(c0 + kTileW) && s_rb1[k] > (float)c0) ||
-           present(words, s_slot[k]);
+  load4(ey, pix, ok, vey); load4(ex, pix, ok, vex);
+  load4(sy, pix, ok, vsy); load4(sx, pix, ok, vsx);
+  auto hit = [&](int k) {                        // uniform across the block
+    return visits(s.lt0[k], s.lt1[k], s.rb0[k], s.rb1[k], r0, kRows, c0,
+                  present(words, s.slot[k]));
   };
 
   // pass B: the focal backward (clip mask) over the visited instances, the
@@ -307,18 +444,18 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   int next = 0;
   while (next < nv && !hit(next)) ++next;
   uint3 slab_next = make_uint3(0u, 0u, 0u);
-  if (next < nv)
-    slab_next = load_slab(r2, cnt, ((size_t)b * M + s_slot[next]) * H * W + slab_pix);
+  if (next < nv && ok)
+    slab_next = load_slab(r2, cnt, ((size_t)b * M + s.slot[next]) * H * W + slab_pix);
   while (next < nv) {
     const int k = next;
     const uint3 slab = slab_next;
     for (++next; next < nv && !hit(next); ++next) {}
-    if (next < nv)
-      slab_next = load_slab(r2, cnt, ((size_t)b * M + s_slot[next]) * H * W + slab_pix);
-    const float lt1 = s_lt1[k], rb1 = s_rb1[k];
-    const float cy = s_cy[k], cx = s_cx[k];
+    if (next < nv && ok)
+      slab_next = load_slab(r2, cnt, ((size_t)b * M + s.slot[next]) * H * W + slab_pix);
+    const float lt1 = s.lt1[k], rb1 = s.rb1[k];
+    const float cy = s.cy[k], cx = s.cx[k];
     const float gpos = s_gpos[k], gneg = s_gneg[k];
-    const bool row_in = (float)row >= s_lt0[k] && (float)row < s_rb0[k];
+    const bool row_in = ok && (float)row >= s.lt0[k] && (float)row < s.rb0[k];
     for (int j = 0; j < 4; ++j) {
       const float cv = count_of(slab, j);
       need[j] |= cv != 0.0f;
@@ -329,7 +466,7 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
       const float tc = tv, one_m = 1.0f - tc;
       // one IEEE reciprocal for both divisions: 1/tc = one_m*inv, 1/(1-tc) = tc*inv
       const float inv = __frcp_rn(tc * one_m);
-      const float neg4 = s_lut[r2_of(slab, j)];
+      const float neg4 = s.lut[r2_of(slab, j)];
       const float dneg_dt = neg4 * (2.0f * tc * logf(one_m) - tc * tc * (tc * inv));
       const float dpos_dt = cv > 0.0f
           ? one_m * one_m * (one_m * inv) - 2.0f * one_m * logf(tc) : 0.0f;
@@ -344,36 +481,27 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
 
   bool any_need = false;
   for (int j = 0; j < 4; ++j) any_need |= need[j];
-  if (!any_need) {
-    store4(dey, pix, aey); store4(dex, pix, aex);
-    store4(dsy, pix, asy); store4(dsx, pix, asx);
+  if (!__any_sync(kFull, any_need)) {           // uniform across the warp
+    if (ok) {
+      store4(dey, pix, aey); store4(dex, pix, aex);
+      store4(dsy, pix, asy); store4(dsx, pix, asx);
+    }
     return;
   }
 
-  // pass A: dmax and its first-max center (strict '>' in index order) at
-  // the pixels holding samples
+  // pass A: dmax and its first-max center at the pixels holding samples
   float dmax[4];
   int amax[4];
-  for (int j = 0; j < 4; ++j) {
-    dmax[j] = 0.0f;
-    amax[j] = -1;
-  }
-  for (int k = 0; k < nv; ++k) {
-    const float cy = s_cy[k], cx = s_cx[k];
-    for (int j = 0; j < 4; ++j) {
-      if (!need[j]) continue;
-      const float d = affinity(vey[j], vex[j], vsy[j], vsx[j], cy, cx);
-      if (d > dmax[j]) { dmax[j] = d; amax[j] = k; }
-    }
-  }
+  first_max(s, nv, vey, vex, vsy, vsx, need, dmax, amax);
 
   // pass P: the pull's own term for the instances with samples in the
   // tile (their counts again, now from the cache); its dmax cotangent
   // accumulates in gmax
   for (int k = 0; k < nv; ++k) {
-    if (!present(words, s_slot[k])) continue;    // uniform across the block
-    const uint3 slab = load_slab(r2, cnt, ((size_t)b * M + s_slot[k]) * H * W + slab_pix);
-    const float cy = s_cy[k], cx = s_cx[k], gpull = s_gpull[k];
+    if (!present(words, s.slot[k])) continue;    // uniform across the block
+    const uint3 slab = ok ? load_slab(r2, cnt, ((size_t)b * M + s.slot[k]) * H * W + slab_pix)
+                          : make_uint3(0u, 0u, 0u);
+    const float cy = s.cy[k], cx = s.cx[k], gpull = s_gpull[k];
     for (int j = 0; j < 4; ++j) {
       const float cv = count_of(slab, j);
       if (cv == 0.0f) continue;
@@ -394,7 +522,7 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   // pass C: the dmax cotangent goes to each pixel's argmax center
   for (int j = 0; j < 4; ++j) {
     if (amax[j] < 0) continue;
-    const float cy = s_cy[amax[j]], cx = s_cx[amax[j]];
+    const float cy = s.cy[amax[j]], cx = s.cx[amax[j]];
     const float d = affinity(vey[j], vex[j], vsy[j], vsx[j], cy, cx);
     const float gexpo = gmax[j] * (-d);
     const float dy = __fsub_rn(vey[j], cy), dx = __fsub_rn(vex[j], cx);
@@ -403,8 +531,10 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
     asy[j] += gexpo * dy * dy;
     asx[j] += gexpo * dx * dx;
   }
-  store4(dey, pix, aey); store4(dex, pix, aex);
-  store4(dsy, pix, asy); store4(dsx, pix, asx);
+  if (ok) {
+    store4(dey, pix, aey); store4(dex, pix, aex);
+    store4(dsy, pix, asy); store4(dsx, pix, asx);
+  }
 }
 
 dim3 tile_grid(int B, int H, int W) {
@@ -414,27 +544,29 @@ dim3 tile_grid(int B, int H, int W) {
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
-// `partial` is scratch of B * ntiles * M * 4 floats, ntiles as iseg_ae_tiles.
 extern "C" int iseg_ae_tiles(int H, int W) {
   const dim3 g = tile_grid(1, H, W);
   return (int)(g.x * g.y);
 }
 
+// `partial` is scratch of B * M * ntiles float4s (ntiles as iseg_ae_tiles),
+// of which K3 writes and reads the visited pairs only; pos, neg, npos and
+// pull are the [B, M] outputs. Two launches.
 extern "C" int iseg_ae_terms_fwd(const void* ey, const void* ex, const void* sy,
                                  const void* sx, const void* r2, const void* cnt,
                                  const void* tab, const void* lut, const void* cntp,
-                                 int B, int M, int H, int W, void* partial, void* out,
-                                 void* stream) {
-  const dim3 grid = tile_grid(B, H, W);
-  ae_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                                 int B, int M, int H, int W, void* partial, void* pos,
+                                 void* neg, void* npos, void* pull, void* stream) {
+  const int ntiles = iseg_ae_tiles(H, W);
+  ae_fwd_kernel<<<dim3(ntiles, B), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)ey, (const float*)ex, (const float*)sy, (const float*)sx,
       (const uint8_t*)r2, (const uint16_t*)cnt, (const float*)tab, (const float*)lut,
-      (const uint4*)cntp, M, H, W, (float*)partial);
+      (const uint4*)cntp, M, H, W, (float4*)partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n = B * M * 4;
-  ae_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)partial, B, (int)(grid.x * grid.y), M, (float*)out);
+  ae_sum_kernel<<<dim3(M, B), kSumThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)partial, (const float*)tab, (const uint32_t*)cntp, M, W, ntiles,
+      (float*)pos, (float*)neg, (float*)npos, (float*)pull);
   return (int)cudaGetLastError();
 }
 

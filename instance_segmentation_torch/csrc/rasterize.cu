@@ -17,8 +17,8 @@
 // minr2_from_cnt (_make_kernel, _axis_min): the same u8 min-r2 map, read
 // from an existing u16 count map (the route taken where K2's rule refuses
 // the shape, e.g. 1024x2048), with slabs whose instance has no valid sample
-// set to 200 whatever their counts hold. Bit-exact. K2 and K6 share the
-// separable min (column_min_pass, row_min).
+// set to 200 whatever their counts hold. Bit-exact: K6 computes K2's
+// separable min (column_min_pass, row_min) bytewise, 4 pixels a word.
 //
 // K2's points arrive pre-clipped: valid samples lie inside the image,
 // invalid ones are encoded out of range (y = H, x = W) and are never
@@ -40,14 +40,22 @@
 //    each block one band, zero-fills it in shared memory, adds the band's
 //    records chunk by chunk in list order and writes it with 16-byte stores.
 //  * K6 reads the live slabs' counts (2 B/px) and writes r2 (1 B/px) for
-//    every slab: bytes. One block per (16 x 128 tile, image * instance). A
-//    slab whose instance has no valid sample (most slots are padding) reads
-//    no count: it stores 200 with 4-byte stores. A live tile loads its halo
-//    of cnt != 0 flags (out-of-image pixels empty) into shared memory and
-//    runs K2's two passes.
+//    every slab: bytes, most of them the padding slabs' 200s (80 of 96 slabs
+//    at 1024x2048). A block per small tile would be bound by the block count
+//    instead (98,304 blocks of 16 x 128 at 1024x2048, most storing 2 KB and
+//    exiting). So a persistent grid, as many blocks as the SMs hold, walks
+//    two lists: fill items, 16 KB of a padding slab stored as 16-byte words
+//    of 200s, and live items, bands of 64 x 128 pixels, whose halo (3 rows
+//    above and below, once per 64 rows) comes in as 16-byte count vectors
+//    turned into flag bytes in shared memory (__vcmpne2, __byte_perm). The
+//    separable min then runs on words of 4 pixels: the horizontal pass takes
+//    byte windows of neighbouring words and selects o^2 by masks, the
+//    vertical pass walks 8 rows a thread with __vaddus4 and __vminu4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -172,45 +180,149 @@ cnt_r2_kernel(const int32_t* __restrict__ ys,    // [B, M, P]
 }
 
 // ---- K6 ---------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-minr2_kernel(const uint16_t* __restrict__ cnt,   // [B * M, H, W]
-             const uint8_t* __restrict__ has,    // [B * M]
-             int H, int W,
-             uint8_t* __restrict__ r2) {         // [B * M, H, W]
-  __shared__ int flags[kHaloH][kHaloW];
-  __shared__ uint8_t colmin[kHaloH][kTileW];
-  const size_t bm = blockIdx.z;
-  const size_t slab = bm * H * W;
-  const int r0 = blockIdx.y * kTileH, c0 = blockIdx.x * kTileW;
+// A persistent grid walks two lists of items. A live item is one band of
+// kBandH x kBandW pixels of a slab whose instance has samples; a fill item is
+// kFillBytes of a padding slab (has == 0), stored as 200s. Each block skips
+// the items of the other kind (a byte of `has` read, uniform across it).
+constexpr int kBandH = 64;                       // rows of a live item
+constexpr int kBandW = 128;                      // columns of a live item: 32 words of 4
+constexpr int kBandWords = kBandW / 4;
+constexpr int kBandHaloH = kBandH + 2 * kRadius;
+constexpr int kFlagPad = 8;                      // flag columns staged each side (>= kRadius,
+                                                 // one 16-byte vector of counts)
+constexpr int kFlagW = kBandW + 2 * kFlagPad;
+constexpr int kRowsPerThread = kBandH / (kThreads / kBandWords);   // vertical pass: 8
+constexpr int kFillBytes = 16384;                // a fill item: 4 16-byte stores a thread
+constexpr uint32_t kBig4 = 0xC8C8C8C8u;          // 4 x 200
+static_assert(kRowsPerThread * (kThreads / kBandWords) == kBandH, "the band's rows split evenly");
+static_assert(kFillBytes == 4 * 16 * kThreads, "fill_big: 4 16-byte stores a thread");
+
+// Bytes k..k+3 of the 8 bytes (lo, hi): a __byte_perm selector.
+__device__ __forceinline__ uint32_t bytes_from(uint32_t lo, uint32_t hi, int k) {
+  return __byte_perm(lo, hi, k | (k + 1) << 4 | (k + 2) << 8 | (k + 3) << 12);
+}
+
+// V u16 counts as one vector load: 16 or 8 bytes.
+template <int V> struct VecOf;
+template <> struct VecOf<8> { using type = uint4; };
+template <> struct VecOf<4> { using type = uint2; };
+template <int V> using Vec = typename VecOf<V>::type;
+
+// The counts' flag bytes (0xFF where the count is not 0), stored at f.
+__device__ __forceinline__ void store_flags(const uint4& q, uint8_t* f) {
+  *reinterpret_cast<uint2*>(f) =
+      make_uint2(__byte_perm(__vcmpne2(q.x, 0u), __vcmpne2(q.y, 0u), 0x6420),
+                 __byte_perm(__vcmpne2(q.z, 0u), __vcmpne2(q.w, 0u), 0x6420));
+}
+
+__device__ __forceinline__ void store_flags(const uint2& q, uint8_t* f) {
+  *reinterpret_cast<uint32_t*>(f) = __byte_perm(__vcmpne2(q.x, 0u), __vcmpne2(q.y, 0u), 0x6420);
+}
+
+// One live item: the band's halo of count flags (out-of-image pixels empty)
+// comes in as V-count vector loads; the separable min of K2's
+// column_min_pass and row_min then runs on 4 pixels a word, bytewise
+// (__byte_perm windows, masks, __vminu4/__vaddus4).
+template <int V>
+__device__ __forceinline__ void minr2_band(const uint16_t* __restrict__ cnt, int H, int W,
+                                           int r0, int c0, uint8_t* __restrict__ out,
+                                           uint8_t (*flags)[kFlagW],
+                                           uint32_t (*hmin)[kBandWords]) {
   const int tid = threadIdx.x;
-  const int lc = (tid % (kTileW / 4)) * 4;
-  const int lr = tid / (kTileW / 4);
-  const bool col_ok = c0 + lc < W;               // W % 4 == 0: all 4 or none
-  if (!has[bm]) {                                // uniform across the block
-    for (int k = 0; k < kPasses; ++k) {
-      const int row = r0 + lr + k * kRowsPerPass;
-      if (row < H && col_ok)
-        *reinterpret_cast<uint32_t*>(r2 + slab + (size_t)row * W + c0 + lc) = 0xC8C8C8C8u;
+  constexpr int kVecs = kFlagW / V;              // count vectors per halo row
+  constexpr int kLoads = (kBandHaloH * kVecs + kThreads - 1) / kThreads;
+  Vec<V> q[kLoads];                              // every load issued before any is used
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int i = tid + u * kThreads, rr = i / kVecs, v = i % kVecs;
+    const int row = r0 - kRadius + rr, col = c0 - kFlagPad + v * V;
+    const bool in = i < kBandHaloH * kVecs && row >= 0 && row < H && col >= 0 &&
+                    col < W;                     // W % V == 0
+    q[u] = in ? *reinterpret_cast<const Vec<V>*>(cnt + (size_t)row * W + col) : Vec<V>{};
+  }
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int i = tid + u * kThreads;
+    if (i < kBandHaloH * kVecs) store_flags(q[u], &flags[i / kVecs][(i % kVecs) * V]);
+  }
+  __syncthreads();
+  // horizontal: min over |o| <= R of o^2 where flagged, else 200 (the larger
+  // offsets first, so the nearest flag wins)
+  for (int i = tid; i < kBandHaloH * kBandWords; i += kThreads) {
+    const int rr = i / kBandWords, w = i % kBandWords;
+    const uint32_t* f = reinterpret_cast<const uint32_t*>(flags[rr]) + kFlagPad / 4 + w;
+    const uint32_t left = f[-1], mid = f[0], right = f[1];
+    uint32_t h = kBig4;
+#pragma unroll
+    for (int o = kRadius; o >= 1; --o) {
+      const uint32_t hit = bytes_from(left, mid, 4 - o) | bytes_from(mid, right, o);
+      h = (hit & (0x01010101u * (uint32_t)(o * o))) | (~hit & h);
     }
-    return;
-  }
-  for (int i = tid; i < kHaloH * kHaloW; i += kThreads) {
-    const int rr = i / kHaloW, cc = i % kHaloW;
-    const int row = r0 - kRadius + rr, col = c0 - kRadius + cc;
-    (&flags[0][0])[i] = (row >= 0 && row < H && col >= 0 && col < W)
-                            ? (cnt[slab + (size_t)row * W + col] != 0)
-                            : 0;
+    hmin[rr][w] = ~mid & h;
   }
   __syncthreads();
-  column_min_pass(flags, colmin, tid);
-  __syncthreads();
-  for (int k = 0; k < kPasses; ++k) {
-    const int tr = lr + k * kRowsPerPass;
-    const int row = r0 + tr;
-    uint8_t rv[4];
-    for (int j = 0; j < 4; ++j) rv[j] = row_min(colmin, tr, lc + j);
-    if (row < H && col_ok)
-      *reinterpret_cast<uint32_t*>(r2 + slab + (size_t)row * W + c0 + lc) = pack4(rv);
+  // vertical: min over |o| <= R of hmin + o^2 (at most 200 + 9: no
+  // saturation), a thread down kRowsPerThread rows of one word
+  const int w = tid % kBandWords, tr0 = (tid / kBandWords) * kRowsPerThread;
+  uint32_t h[kRowsPerThread + 2 * kRadius];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread + 2 * kRadius; ++i) h[i] = hmin[tr0 + i][w];
+  const int col = c0 + 4 * w;
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    uint32_t best = h[r + kRadius];
+#pragma unroll
+    for (int o = 1; o <= kRadius; ++o) {
+      const uint32_t add = 0x01010101u * (uint32_t)(o * o);
+      best = __vminu4(best, __vaddus4(h[r + kRadius - o], add));
+      best = __vminu4(best, __vaddus4(h[r + kRadius + o], add));
+    }
+    const int row = r0 + tr0 + r;
+    if (row < H && col < W)                      // W % 4 == 0: all 4 columns or none
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * W + col) = best;
+  }
+}
+
+// 200s over the bytes [lo, hi) of r2, both multiples of 4: 4-byte stores up
+// to the first 16-byte boundary and after the last, 16-byte ones between.
+__device__ __forceinline__ void fill_big(uint8_t* __restrict__ r2, size_t lo, size_t hi) {
+  const size_t up = (lo + 15) & ~(size_t)15, down = hi & ~(size_t)15;
+  const size_t a0 = up < hi ? up : hi;
+  const size_t a1 = down > a0 ? down : a0;
+  const int tid = threadIdx.x;
+  for (size_t x = lo + 4 * tid; x < a0; x += 4 * kThreads)
+    *reinterpret_cast<uint32_t*>(r2 + x) = kBig4;
+  for (size_t x = a0 + 16 * tid; x < a1; x += 16 * kThreads)
+    *reinterpret_cast<uint4*>(r2 + x) = make_uint4(kBig4, kBig4, kBig4, kBig4);
+  for (size_t x = a1 + 4 * tid; x < hi; x += 4 * kThreads)
+    *reinterpret_cast<uint32_t*>(r2 + x) = kBig4;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+minr2_kernel(const uint16_t* __restrict__ cnt,   // [BM, H, W]
+             const uint8_t* __restrict__ has,    // [BM]
+             int BM, int H, int W,
+             uint8_t* __restrict__ r2) {         // [BM, H, W]
+  __shared__ __align__(16) uint8_t flags[kBandHaloH][kFlagW];
+  __shared__ uint32_t hmin[kBandHaloH][kBandWords];
+  const size_t plane = (size_t)H * W;
+  const int bands_w = (W + kBandW - 1) / kBandW;
+  const int per_slab = ((H + kBandH - 1) / kBandH) * bands_w;      // live items a slab
+  const int fills = (int)((plane + kFillBytes - 1) / kFillBytes);  // fill items a slab
+  for (int item = blockIdx.x; item < BM * per_slab; item += gridDim.x) {
+    const int slab = item / per_slab;
+    if (!has[slab]) continue;                    // uniform across the block
+    const int t = item - slab * per_slab;
+    minr2_band<V>(cnt + slab * plane, H, W, (t / bands_w) * kBandH, (t % bands_w) * kBandW,
+                  r2 + slab * plane, flags, hmin);
+  }
+  for (int item = blockIdx.x; item < BM * fills; item += gridDim.x) {
+    const int slab = item / fills;
+    if (has[slab]) continue;
+    const size_t lo = (size_t)(item - slab * fills) * kFillBytes;
+    const size_t hi = lo + kFillBytes < plane ? lo + kFillBytes : plane;
+    fill_big(r2, slab * plane + lo, slab * plane + hi);
   }
 }
 
@@ -454,12 +566,37 @@ extern "C" int iseg_rasterize_cnt_r2(const void* ys, const void* xs, const void*
   return (int)cudaGetLastError();
 }
 
-// BM = B * M slabs; gridDim.z caps it at 65535 (the wrapper checks).
+// BM = B * M slabs, and BM times a slab's items (bands and 16 KB fills)
+// below 2^31 (the wrapper checks). A persistent grid: as many blocks as the
+// card's SMs hold at once, or the items if fewer.
 extern "C" int iseg_minr2_from_cnt(const void* cnt, const void* has, int BM, int H, int W,
                                    void* r2, void* stream) {
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, BM);
-  minr2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint16_t*)cnt, (const uint8_t*)has, H, W, (uint8_t*)r2);
+  static int resident[64][2];                    // per device: blocks per SM x SMs
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  // counts as 16-byte vectors where they align so, else as 8-byte ones
+  const bool wide = W % 8 == 0 && (uintptr_t)cnt % 16 == 0;
+  const void* kernel = wide ? (const void*)minr2_kernel<8> : (const void*)minr2_kernel<4>;
+  int& blocks = resident[dev][wide];
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    blocks = per_sm * sms;
+  }
+  const long long items = (long long)BM * std::max<long long>(
+      (long long)((H + kBandH - 1) / kBandH) * ((W + kBandW - 1) / kBandW),
+      ((long long)H * W + kFillBytes - 1) / kFillBytes);
+  const int grid = (int)std::min<long long>(blocks, items);
+  if (wide)
+    minr2_kernel<8><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint16_t*)cnt, (const uint8_t*)has, BM, H, W, (uint8_t*)r2);
+  else
+    minr2_kernel<4><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint16_t*)cnt, (const uint8_t*)has, BM, H, W, (uint8_t*)r2);
   return (int)cudaGetLastError();
 }
 

@@ -158,6 +158,8 @@ def _check(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[int, int, int, int]
 def _cuda_checks(tensors, M: int) -> None:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ae_terms inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("ae_terms inputs must be 16-byte aligned (the kernels' vector loads)")
     if M > MAX_M:
         raise ValueError(f"the ae_terms kernels take at most {MAX_M} instances, got {M}")
 
@@ -168,7 +170,7 @@ def _kernels():
     lib.iseg_ae_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.iseg_ae_tiles.restype = ctypes.c_int
     fwd = lib.iseg_ae_terms_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
     fwd.restype = ctypes.c_int
     bwd = lib.iseg_ae_terms_bwd
     bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
@@ -181,7 +183,9 @@ def _ptrs(*tensors):
 
 
 def ae_terms_fwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[torch.Tensor, ...]:
-    """Kernel K3 on CUDA tensors: (pos, neg, npos, pull) f32 [B, M]."""
+    """Kernel K3 on CUDA tensors: (pos, neg, npos, pull) f32 [B, M], each an
+    output the kernel writes; no other tensor op than their allocation and
+    the scratch's."""
     B, M, H, W = _check(ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     inputs = (ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     _cuda_checks(inputs, M)
@@ -189,16 +193,16 @@ def ae_terms_fwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[torch.Tensor,
     nt = tiles(H, W)
     if nt != cntp.shape[1]:
         raise RuntimeError(f"tile count {nt} of the kernel differs from {cntp.shape[1]}")
-    out = torch.empty((4, B, M), dtype=torch.float32, device=ey.device)
+    outs = tuple(torch.empty((B, M), dtype=torch.float32, device=ey.device) for _ in range(4))
     if B * M * H * W == 0:
-        return tuple(out.zero_().unbind(0))
-    partial = torch.empty((B, nt, M, 4), dtype=torch.float32, device=ey.device)
+        return tuple(o.zero_() for o in outs)
+    partial = torch.empty((B, M, nt, 4), dtype=torch.float32, device=ey.device)
     err = build.launch(fwd, ey.device, *_ptrs(*inputs), B, M, H, W, partial.data_ptr(),
-                       out.data_ptr())
+                       *_ptrs(*outs))
     if err != 0:
         raise RuntimeError(f"ae_terms forward kernel launch failed: CUDA error {err}")
     launches["ae_terms_fwd"] += 1
-    return tuple(o.clone() for o in out.unbind(0))
+    return outs
 
 
 def ae_terms_bwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp, g_pos: torch.Tensor,

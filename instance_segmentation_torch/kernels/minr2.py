@@ -13,6 +13,10 @@ take the shape (``losses.rasterizer_supported``): ``losses.ae_sample_count``
 makes the count map, K6 its min-r2 map. The wrapper runs the CUDA kernel on
 CUDA tensors and its plain twin on CPU tensors; any other device raises.
 ``launches`` counts kernel launches.
+
+The kernel walks bands of ``BAND_H`` x ``BAND_W`` pixels of the live slabs
+and fills the padding slabs (``has`` 0) with 200s, ``FILL_BYTES`` an item,
+from one persistent grid (``csrc/rasterize.cu``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import torch
 from instance_segmentation_torch.kernels import build
 from instance_segmentation_torch.kernels.rasterize import R2_BIG, shift_min_r2
 
-MAX_SLABS = 65535                # B * M: the kernel's grid z dimension
+BAND_H, BAND_W = 64, 128         # a live item; csrc/rasterize.cu kBandH, kBandW
+FILL_BYTES = 16384               # a fill item; csrc/rasterize.cu kFillBytes
+MAX_ITEMS = 2 ** 31 - 1          # B * M times a slab's items: the kernel's int index
 launches = {"minr2_from_cnt": 0}
 
 
@@ -69,10 +75,13 @@ def minr2_from_cnt(cnt: torch.Tensor, has: torch.Tensor, radius: int = 3) -> tor
     if radius != 3:
         raise ValueError(f"the K6 kernel is built for radius 3, got {radius}")
     B, M, h, w = cnt.shape
-    if B * M > MAX_SLABS:
-        raise ValueError(f"the K6 kernel takes at most {MAX_SLABS} slabs, got B*M = {B * M}")
+    items = B * M * max(-(-h // BAND_H) * -(-w // BAND_W), -(-h * w // FILL_BYTES))
+    if items > MAX_ITEMS:
+        raise ValueError(f"the K6 kernel takes at most {MAX_ITEMS} items, got {items}")
     cnt = cnt.view(torch.int16).contiguous().view(torch.uint16)
-    has = has.to(torch.uint8).contiguous()
+    if cnt.data_ptr() % 8:
+        raise ValueError("minr2_from_cnt takes cnt aligned to 8 bytes")
+    has = (has.view(torch.uint8) if has.dtype == torch.bool else has).contiguous()
     r2 = torch.empty((B, M, h, w), dtype=torch.uint8, device=cnt.device)
     if B * M == 0:
         return r2

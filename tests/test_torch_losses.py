@@ -493,6 +493,13 @@ def test_kernel_sources_name_what_they_replace():
     assert f"kTileH = {tae.TILE_H};" in src and f"kTileW = {tae.TILE_W};" in src
     assert f"kMaxM = {tae.MAX_M};" in src
     assert f"kTabW = {tae.pack_table(*[torch.zeros(1, 1, 2)] * 3, torch.zeros(1, 1)).shape[-1]};" in src
+    # K3's partials [B, M, ntiles] float4, as the wrapper allocates them
+    assert "float4* __restrict__ partial) {    // [B, M, ntiles]" in src
+    assert "partial[(slabs + s.slot[k]) * ntiles + tile] = sum;" in src
+    from instance_segmentation_torch.kernels import minr2
+    src = (build.CSRC / "rasterize.cu").read_text()
+    assert f"kBandH = {minr2.BAND_H};" in src and f"kBandW = {minr2.BAND_W};" in src
+    assert f"kFillBytes = {minr2.FILL_BYTES};" in src
 
 
 # ---- on a card -----------------------------------------------------------------------
@@ -566,5 +573,9 @@ def test_ae_terms_match_twin_on_card(cuda_device):
     (got, g_got), (want, g_want) = results
     for g, w in zip(got, want):
         assert torch.allclose(g, w, rtol=1e-5, atol=0.0)
+    # K3 sums without float atomics: two launches agree in every bit
+    again = tae.ae_terms_fwd(*(f.detach() for f in fields), *rest)
+    for g, a in zip(got, again):
+        assert torch.equal(g.detach().view(torch.int32), a.view(torch.int32))
     for g, w in zip(g_got, g_want):
         assert float((g - w).abs().max()) <= GRAD_TOL * float(w.abs().max())

@@ -123,3 +123,39 @@ def test_minr2_kernel_matches_twin_on_card():
         torch.cuda.synchronize()
         assert tm2.launches["minr2_from_cnt"] == before + 1
         assert torch.equal(got, want), case
+
+
+def _edge_counts(b, m, h, w, seed):
+    """Sparse counts with samples on all four borders of slab (0, 0), and
+    slab (-1, -1) holding counts with has == 0."""
+    rng = np.random.default_rng(seed)
+    cnt = ((rng.uniform(size=(b, m, h, w)) < 0.003) * rng.integers(1, 4, (b, m, h, w)))
+    cnt[0, 0, [0, h - 1], :] = 1
+    cnt[0, 0, :, [0, w - 1]] = 2
+    cnt[-1, -1, h // 2, w // 2] = 5
+    has = cnt.reshape(b, m, -1).any(-1)
+    has[-1, -1] = False
+    return cnt.astype(np.int16), has
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,h,w", [
+    (2, 3, tm2.BAND_H + 6, 2 * tm2.BAND_W + 4),      # H, W off the band; W % 8 == 4
+    (1, 4, 2 * tm2.BAND_H + 2, tm2.BAND_W + 72),     # W % 8 == 0, not of BAND_W
+    (3, 2, tm2.BAND_H - 1, 12),                       # one band, narrower than one
+])
+def test_minr2_kernel_matches_twin_on_edge_shapes(b, m, h, w):
+    """Bands and count vectors that end raggedly, samples on the borders, a
+    slab with counts but has == 0, and the same batch as padding only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    dev = torch.device("cuda")
+    cnt, has = _edge_counts(b, m, h, w, seed=h + w)
+    cnt_t = torch.from_numpy(cnt).to(dev).view(torch.uint16)
+    for flags in (torch.from_numpy(has).to(dev), torch.zeros((b, m), dtype=torch.bool,
+                                                              device=dev)):
+        got = tm2.minr2_from_cnt(cnt_t, flags)
+        want = tm2.minr2_from_cnt_plain(cnt_t, flags)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert (got == 200).all()
