@@ -15,7 +15,11 @@
 // min-r2 map), npos = [cnt > 0 and win], pull = cnt |d - dmax|. K4 takes the
 // cotangents of pos, neg and pull (npos is a count: none) and writes
 // d/d(ey, ex, sy, sx), routing each pixel's dmax cotangent to its first-max
-// center (strict '>' in index order), as the TPU kernel does.
+// center (strict '>' in index order), as the TPU kernel does. An instance
+// that is not valid has no window, so its focal terms are 0; where it has
+// samples all the same (the loss never builds such input), its pull is
+// summed and differentiated like any other, dmax still over the valid
+// centers, as the TPU kernel and the plain twin do.
 //
 // What bounds them on the card: less the bytes than the issue of their
 // arithmetic (per visited pixel and instance an expf, one or two logf and
@@ -30,21 +34,25 @@
 // (visits), run the focal pass first with the next visited instance's slab
 // loaded before this one's arithmetic, mark there the pixels holding a
 // sample, and compute dmax (first_max) and the pull term at those pixels
-// only: cnt is 0 everywhere else, so the pull lives there alone. Such pixels
-// are few, so first_max spreads a warp's marked pixels over its lanes and
-// walks the centers once for them all. Each block loads its tile's presence
-// words before the staging and each table row in two 16-byte loads.
+// only: cnt is 0 everywhere else, so the pull lives there alone. The
+// instances that are not valid are staged after the valid ones with an
+// empty window: only the tiles holding their samples visit them, for the
+// pull alone: a block stages only those with samples in its tile (none on
+// the loss's path). Pixels holding a sample are few, so
+// first_max spreads a warp's marked pixels over its lanes and walks the
+// centers once for them all. Each block loads its tile's presence words
+// before the staging and each table row in two 16-byte loads.
 //
 // K3 gives a block one tile. A tile that no instance visits reads no field
 // and writes nothing. Each warp reduces an instance's sums with shuffles into
 // shared memory, no block-wide barrier per instance; one barrier at the end
 // sums the warps in a fixed order and writes one partial per visited (tile,
-// instance) pair, [B, M, ntiles] float4. A second kernel gives each (image,
-// instance) a block that walks its tiles contiguously, adds the partials of
-// the tiles the same test visits (so unvisited pairs need no zeros) and sums
-// its threads in a fixed tree: no float atomics, the same bits every launch.
-// The four sums go to four [B, M] outputs the wrapper allocates: no PyTorch
-// kernel runs inside the call.
+// instance) pair, [B, M, ntiles] float4 (partial_at). A second kernel gives
+// each (image, instance) a block that walks its tiles contiguously, adds the
+// partials of the tiles the same test visits (so unvisited pairs need no
+// zeros) and sums its threads in a fixed tree: no float atomics, the same
+// bits every launch. The four sums go to four [B, M] outputs the wrapper
+// allocates: no PyTorch kernel runs inside the call.
 //
 // K4's blocks are smaller (128 threads, half a tile, 80 registers so six
 // blocks fit an SM): it is bound by the latency of its dependent loads more
@@ -58,6 +66,7 @@
 // the full-precision functions (no --use_fast_math).
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -103,23 +112,26 @@ __device__ __forceinline__ bool visits(float lt0, float lt1, float rb0, float rb
           rb1 > (float)c0) || pts;
 }
 
-// An image's valid instances, compacted in index order, and the (1-g)^4
-// table: what K3 and K4 stage once per block.
+// A block's instances, the valid ones first, each kind compacted in index
+// order, and the (1-g)^4 table: what K3 and K4 stage once per block.
 struct Instances {
   float cy[kMaxM], cx[kMaxM], lt0[kMaxM], lt1[kMaxM], rb0[kMaxM], rb1[kMaxM];
   int slot[kMaxM];                               // entry k's instance index
-  int count[kMaxM / 32];
+  int count[kMaxM / 32], rest[kMaxM / 32];       // valid and other entries a warp
   float lut[256];
 };
 
 // Called by every thread of the block (blockDim.x >= kMaxM, whole warps);
 // ends in a barrier. Valid instance m becomes entry k, its rank among the
-// valid ones; extra(k, m) stages a kernel's own fields of it. Returns the
-// number of valid instances.
+// valid ones. The nv valid ones are followed by the others that have
+// samples in the block's tile (presence words w), entries nv to n - 1, each
+// with an empty window (visits() takes them for their samples only).
+// extra(k, m) stages a kernel's own fields of entry k. Returns nv.
 template <class Extra>
 __device__ __forceinline__ int stage_instances(const float* __restrict__ tab,
                                                const float* __restrict__ lut, int b, int M,
-                                               Instances& s, Extra extra) {
+                                               const uint4& w, Instances& s, int& n,
+                                               Extra extra) {
   const int tid = threadIdx.x;
   for (int i = tid; i < 256; i += blockDim.x) s.lut[i] = lut[i];
   // the whole row in two 16-byte loads, before its valid flag is known
@@ -130,25 +142,36 @@ __device__ __forceinline__ int stage_instances(const float* __restrict__ tab,
     hi = row[1];
   }
   static_assert(kCY == 0 && kLT1 == 3 && kValid == 6 && kTabW == 8, "the row's layout");
-  const bool valid = hi.z > 0.0f;                // kValid
+  const bool valid = hi.z > 0.0f;                // kValid (0 past M)
   const unsigned ballot = __ballot_sync(kFull, valid);
-  if (tid < kMaxM && tid % 32 == 0) s.count[tid / 32] = __popc(ballot);
+  const bool other = tid < M && !valid && present(w, tid);
+  const unsigned others = __ballot_sync(kFull, other);
+  if (tid < kMaxM && tid % 32 == 0) {
+    s.count[tid / 32] = __popc(ballot);
+    s.rest[tid / 32] = __popc(others);
+  }
   __syncthreads();
-  if (valid) {
-    int k = __popc(ballot & ((1u << (tid % 32)) - 1u));
-    for (int v = 0; v < tid / 32; ++v) k += s.count[v];
+  int nv = 0;
+  n = 0;
+  for (int v = 0; v < kMaxM / 32; ++v) {
+    nv += s.count[v];
+    n += s.rest[v];
+  }
+  n += nv;
+  if (valid || other) {
+    const unsigned below = (1u << (tid % 32)) - 1u;
+    int k = valid ? __popc(ballot & below) : nv + __popc(others & below);
+    for (int v = 0; v < tid / 32; ++v) k += valid ? s.count[v] : s.rest[v];
     s.cy[k] = lo.x;
     s.cx[k] = lo.y;
-    s.lt0[k] = lo.z;
-    s.lt1[k] = lo.w;
-    s.rb0[k] = hi.x;
-    s.rb1[k] = hi.y;
+    s.lt0[k] = valid ? lo.z : CUDART_INF_F;
+    s.lt1[k] = valid ? lo.w : CUDART_INF_F;
+    s.rb0[k] = valid ? hi.x : -CUDART_INF_F;
+    s.rb1[k] = valid ? hi.y : -CUDART_INF_F;
     s.slot[k] = tid;
     extra(k, tid);
   }
   __syncthreads();
-  int nv = 0;
-  for (int v = 0; v < kMaxM / 32; ++v) nv += s.count[v];
   return nv;
 }
 
@@ -227,9 +250,30 @@ __device__ __forceinline__ int r2_of(const uint3& slab, int j) {
   return (slab.x >> (8 * j)) & 0xFFu;
 }
 
+// Marks need at the samples of the instances that are not valid (entries
+// nv to n - 1): their pull needs dmax there too. at(k) is the offset of
+// entry k's 4 pixels in r2 and cnt.
+template <class At>
+__device__ __forceinline__ void mark_other_samples(int nv, int n, bool ok,
+                                                   const uint8_t* __restrict__ r2,
+                                                   const uint16_t* __restrict__ cnt, At at,
+                                                   bool* need) {
+  for (int k = nv; k < n && ok; ++k) {
+    const uint3 slab = load_slab(r2, cnt, at(k));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) need[j] |= count_of(slab, j) != 0.0f;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;                                      // complete in lane 0
+}
+
+// K3's scratch: the float4 partial of instance bm (b * M + m) in tile t,
+// [B, M, ntiles].
+__host__ __device__ __forceinline__ size_t partial_at(size_t bm, int ntiles, int t) {
+  return bm * ntiles + t;
 }
 
 // K3: a block per 16 x 64 tile, 4 adjacent pixels a thread.
@@ -251,23 +295,25 @@ ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   const int row = r0 + tid / (kTileW / 4), col = c0 + (tid % (kTileW / 4)) * 4;
   const bool ok = row < H && col < W;            // W % 4 == 0: all 4 columns or none
   const uint4 words = cntp[(size_t)b * ntiles + tile];   // in flight during the staging
-  const int nv = stage_instances(tab, lut, b, M, s, [](int, int) {});
+  int n;
+  const int nv = stage_instances(tab, lut, b, M, words, s, n, [](int, int) {});
   auto hit = [&](int k) {                        // uniform across the block
     return visits(s.lt0[k], s.lt1[k], s.rb0[k], s.rb1[k], r0, kTileH, c0,
                   present(words, s.slot[k]));
   };
   int next = 0;
-  while (next < nv && !hit(next)) ++next;
-  if (next == nv) return;                        // no visit: no field read, nothing written
+  while (next < n && !hit(next)) ++next;
+  if (next == n) return;                         // no visit: no field read, nothing written
 
   const size_t pix = ((size_t)b * H + row) * W + col;
   const size_t slab_pix = (size_t)row * W + col;
   const size_t slabs = (size_t)b * M;
+  auto at = [&](int k) { return (slabs + s.slot[k]) * H * W + slab_pix; };
   float vey[4], vex[4], vsy[4], vsx[4];
   load4(ey, pix, ok, vey); load4(ex, pix, ok, vex);
   load4(sy, pix, ok, vsy); load4(sx, pix, ok, vsx);
   uint3 slab_next = make_uint3(0u, 0u, 0u);
-  if (ok) slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
+  if (next < nv && ok) slab_next = load_slab(r2, cnt, at(next));
 
   // the focal pass over the visited instances, the next one's slab loaded
   // before this one's arithmetic; it marks the pixels holding samples
@@ -276,8 +322,7 @@ ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
     const int k = next;
     const uint3 slab = slab_next;
     for (++next; next < nv && !hit(next); ++next) {}
-    if (next < nv && ok)
-      slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
+    if (next < nv && ok) slab_next = load_slab(r2, cnt, at(next));
     const float lt1 = s.lt1[k], rb1 = s.rb1[k], cy = s.cy[k], cx = s.cx[k];
     const bool row_in = ok && (float)row >= s.lt0[k] && (float)row < s.rb0[k];
     float pos = 0.0f, neg = 0.0f;
@@ -305,18 +350,18 @@ ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   // dmax at the pixels holding samples, then the pull of the instances
   // with samples in the tile (their counts again, from the cache, the
   // next one's loaded before this one's arithmetic)
+  mark_other_samples(nv, n, ok, r2, cnt, at, need);
   float dmax[4];
   int amax[4];
   first_max(s, nv, vey, vex, vsy, vsx, need, dmax, amax);
   next = 0;
-  while (next < nv && !present(words, s.slot[next])) ++next;
-  if (next < nv && ok) slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
-  while (next < nv) {
+  while (next < n && !present(words, s.slot[next])) ++next;
+  if (next < n && ok) slab_next = load_slab(r2, cnt, at(next));
+  while (next < n) {
     const int k = next;
     const uint3 slab = slab_next;
-    for (++next; next < nv && !present(words, s.slot[next]); ++next) {}
-    if (next < nv && ok)
-      slab_next = load_slab(r2, cnt, (slabs + s.slot[next]) * H * W + slab_pix);
+    for (++next; next < n && !present(words, s.slot[next]); ++next) {}
+    if (next < n && ok) slab_next = load_slab(r2, cnt, at(next));
     const float cy = s.cy[k], cx = s.cx[k];
     float pull = 0.0f;
 #pragma unroll
@@ -326,25 +371,29 @@ ae_fwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
       pull += cv * fabsf(affinity(vey[j], vex[j], vsy[j], vsx[j], cy, cx) - dmax[j]);
     }
     pull = warp_sum(pull);
-    if (lane == 0) s_part[warp][k].w = pull;
+    if (lane == 0) {                             // no focal pass for the others
+      if (k < nv) s_part[warp][k].w = pull;
+      else s_part[warp][k] = make_float4(0.0f, 0.0f, 0.0f, pull);
+    }
   }
 
   // one barrier: the warps' sums, in warp order, one partial per visit
   __syncthreads();
-  for (int k = tid; k < nv; k += kThreads) {
+  for (int k = tid; k < n; k += kThreads) {
     if (!hit(k)) continue;
     float4 sum = s_part[0][k];
     for (int v = 1; v < kWarps; ++v) {
       const float4 q = s_part[v][k];
       sum.x += q.x; sum.y += q.y; sum.z += q.z; sum.w += q.w;
     }
-    partial[(slabs + s.slot[k]) * ntiles + tile] = sum;
+    partial[partial_at(slabs + s.slot[k], ntiles, tile)] = sum;
   }
 }
 
 // K3's cross-tile sum: a block per (instance, image) walks the tiles in
 // order, adds the partials of the tiles that visit the instance (the test
-// of ae_fwd_kernel) and sums its threads in a fixed tree.
+// of ae_fwd_kernel, an instance that is not valid with the empty window
+// stage_instances gives it) and sums its threads in a fixed tree.
 __global__ void __launch_bounds__(kSumThreads)
 ae_sum_kernel(const float4* __restrict__ partial,  // [B, M, ntiles]
               const float* __restrict__ tab,       // [B, M, 8]
@@ -357,16 +406,16 @@ ae_sum_kernel(const float4* __restrict__ partial,  // [B, M, ntiles]
   const size_t bm = (size_t)b * M + m;
   const float* entry = tab + bm * kTabW;
   const int nw = (W + kTileW - 1) / kTileW;
+  const bool valid = entry[kValid] > 0.0f;
+  const float lt0 = valid ? entry[kLT0] : CUDART_INF_F, lt1 = valid ? entry[kLT1] : CUDART_INF_F;
+  const float rb0 = valid ? entry[kRB0] : -CUDART_INF_F, rb1 = valid ? entry[kRB1] : -CUDART_INF_F;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (entry[kValid] > 0.0f) {                      // uniform: an invalid instance sums 0
-    const float lt0 = entry[kLT0], lt1 = entry[kLT1], rb0 = entry[kRB0], rb1 = entry[kRB1];
-    for (int t = tid; t < ntiles; t += kSumThreads) {
-      const bool pts = (cntp[((size_t)b * ntiles + t) * 4 + m / 32] >> (m % 32)) & 1u;
-      if (!visits(lt0, lt1, rb0, rb1, (t / nw) * kTileH, kTileH, (t % nw) * kTileW, pts))
-        continue;
-      const float4 q = partial[bm * ntiles + t];
-      acc.x += q.x; acc.y += q.y; acc.z += q.z; acc.w += q.w;
-    }
+  for (int t = tid; t < ntiles; t += kSumThreads) {
+    const bool pts = (cntp[((size_t)b * ntiles + t) * 4 + m / 32] >> (m % 32)) & 1u;
+    if (!visits(lt0, lt1, rb0, rb1, (t / nw) * kTileH, kTileH, (t % nw) * kTileW, pts))
+      continue;
+    const float4 q = partial[partial_at(bm, ntiles, t)];
+    acc.x += q.x; acc.y += q.y; acc.z += q.z; acc.w += q.w;
   }
   acc.x = warp_sum(acc.x);
   acc.y = warp_sum(acc.y);
@@ -412,7 +461,8 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   const int c0 = (tile % nw) * kTileW;
   const int row = r0 + tid / (kTileW / 4), col = c0 + (tid % (kTileW / 4)) * 4;
   const uint4 words = cntp[(size_t)b * ntiles + tile];   // in flight during the staging
-  const int nv = stage_instances(tab, lut, b, M, s, [&](int k, int m) {
+  int n;
+  const int nv = stage_instances(tab, lut, b, M, words, s, n, [&](int k, int m) {
     s_gpos[k] = g_pos[(size_t)b * M + m];
     s_gneg[k] = g_neg[(size_t)b * M + m];
     s_gpull[k] = g_pull[(size_t)b * M + m];
@@ -423,6 +473,7 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
 
   const size_t pix = ((size_t)b * H + row) * W + col;
   const size_t slab_pix = (size_t)row * W + col;
+  auto at = [&](int k) { return ((size_t)b * M + s.slot[k]) * H * W + slab_pix; };
   float vey[4], vex[4], vsy[4], vsx[4];
   load4(ey, pix, ok, vey); load4(ex, pix, ok, vex);
   load4(sy, pix, ok, vsy); load4(sx, pix, ok, vsx);
@@ -444,14 +495,12 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   int next = 0;
   while (next < nv && !hit(next)) ++next;
   uint3 slab_next = make_uint3(0u, 0u, 0u);
-  if (next < nv && ok)
-    slab_next = load_slab(r2, cnt, ((size_t)b * M + s.slot[next]) * H * W + slab_pix);
+  if (next < nv && ok) slab_next = load_slab(r2, cnt, at(next));
   while (next < nv) {
     const int k = next;
     const uint3 slab = slab_next;
     for (++next; next < nv && !hit(next); ++next) {}
-    if (next < nv && ok)
-      slab_next = load_slab(r2, cnt, ((size_t)b * M + s.slot[next]) * H * W + slab_pix);
+    if (next < nv && ok) slab_next = load_slab(r2, cnt, at(next));
     const float lt1 = s.lt1[k], rb1 = s.rb1[k];
     const float cy = s.cy[k], cx = s.cx[k];
     const float gpos = s_gpos[k], gneg = s_gneg[k];
@@ -479,6 +528,7 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
     }
   }
 
+  mark_other_samples(nv, n, ok, r2, cnt, at, need);
   bool any_need = false;
   for (int j = 0; j < 4; ++j) any_need |= need[j];
   if (!__any_sync(kFull, any_need)) {           // uniform across the warp
@@ -495,12 +545,11 @@ ae_bwd_kernel(const float* __restrict__ ey, const float* __restrict__ ex,
   first_max(s, nv, vey, vex, vsy, vsx, need, dmax, amax);
 
   // pass P: the pull's own term for the instances with samples in the
-  // tile (their counts again, now from the cache); its dmax cotangent
-  // accumulates in gmax
-  for (int k = 0; k < nv; ++k) {
+  // tile, the ones that are not valid included (their counts again, now
+  // from the cache); its dmax cotangent accumulates in gmax
+  for (int k = 0; k < n; ++k) {
     if (!present(words, s.slot[k])) continue;    // uniform across the block
-    const uint3 slab = ok ? load_slab(r2, cnt, ((size_t)b * M + s.slot[k]) * H * W + slab_pix)
-                          : make_uint3(0u, 0u, 0u);
+    const uint3 slab = ok ? load_slab(r2, cnt, at(k)) : make_uint3(0u, 0u, 0u);
     const float cy = s.cy[k], cx = s.cx[k], gpull = s_gpull[k];
     for (int j = 0; j < 4; ++j) {
       const float cv = count_of(slab, j);
@@ -549,8 +598,14 @@ extern "C" int iseg_ae_tiles(int H, int W) {
   return (int)(g.x * g.y);
 }
 
-// `partial` is scratch of B * M * ntiles float4s (ntiles as iseg_ae_tiles),
-// of which K3 writes and reads the visited pairs only; pos, neg, npos and
+// The floats of K3's scratch, `partial`: a float4 for each (image,
+// instance, tile), of which K3 writes and reads the visited ones only.
+extern "C" long long iseg_ae_partial_floats(int B, int M, int H, int W) {
+  return (long long)partial_at((size_t)B * M, iseg_ae_tiles(H, W), 0) *
+         (sizeof(float4) / sizeof(float));
+}
+
+// `partial` is scratch of iseg_ae_partial_floats floats; pos, neg, npos and
 // pull are the [B, M] outputs. Two launches.
 extern "C" int iseg_ae_terms_fwd(const void* ey, const void* ex, const void* sy,
                                  const void* sx, const void* r2, const void* cnt,

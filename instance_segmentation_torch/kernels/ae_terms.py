@@ -14,7 +14,10 @@ Inputs: ey, ex, sy, sx f32 [B, H, W]; r2 u8 and cnt u16 [B, M, H, W] (K2);
 ``tab`` f32 [B, M, 8] (``pack_table``); ``lut`` f32 [256] (``neg4_lut``);
 ``cntp`` int32 [B, ntiles, 4] (``tile_presence``): per tile a bitmask of the
 instances with samples there (bit m % 32 of word m // 32), which must mark
-every such (tile, instance). Samples belong to valid instances only.
+every such (tile, instance). An instance whose valid flag is 0 has no
+window: its focal terms are 0, but where it has samples (the loss never
+builds such input) its pull is summed and differentiated, dmax still over
+the valid centers, in the kernels as in the twin.
 
 ``ae_terms`` runs the kernels on CUDA tensors and the plain PyTorch twin
 ``ae_terms_plain`` (whose autograd gives the gradient) on CPU tensors; any
@@ -169,13 +172,15 @@ def _kernels():
     lib = build.load("ae_terms")
     lib.iseg_ae_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.iseg_ae_tiles.restype = ctypes.c_int
+    lib.iseg_ae_partial_floats.argtypes = [ctypes.c_int] * 4
+    lib.iseg_ae_partial_floats.restype = ctypes.c_longlong
     fwd = lib.iseg_ae_terms_fwd
     fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
     fwd.restype = ctypes.c_int
     bwd = lib.iseg_ae_terms_bwd
     bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
     bwd.restype = ctypes.c_int
-    return lib.iseg_ae_tiles, fwd, bwd
+    return lib.iseg_ae_tiles, lib.iseg_ae_partial_floats, fwd, bwd
 
 
 def _ptrs(*tensors):
@@ -189,14 +194,14 @@ def ae_terms_fwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp) -> Tuple[torch.Tensor,
     B, M, H, W = _check(ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     inputs = (ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     _cuda_checks(inputs, M)
-    tiles, fwd, _ = _kernels()
+    tiles, partial_floats, fwd, _ = _kernels()
     nt = tiles(H, W)
     if nt != cntp.shape[1]:
         raise RuntimeError(f"tile count {nt} of the kernel differs from {cntp.shape[1]}")
     outs = tuple(torch.empty((B, M), dtype=torch.float32, device=ey.device) for _ in range(4))
     if B * M * H * W == 0:
         return tuple(o.zero_() for o in outs)
-    partial = torch.empty((B, M, nt, 4), dtype=torch.float32, device=ey.device)
+    partial = torch.empty(partial_floats(B, M, H, W), dtype=torch.float32, device=ey.device)
     err = build.launch(fwd, ey.device, *_ptrs(*inputs), B, M, H, W, partial.data_ptr(),
                        *_ptrs(*outs))
     if err != 0:
@@ -218,7 +223,7 @@ def ae_terms_bwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp, g_pos: torch.Tensor,
         raise ValueError(f"the cotangents: want [B, M] = {(B, M)} on {ey.device}")
     inputs = (ey, ex, sy, sx, r2, cnt, tab, lut, cntp)
     _cuda_checks(inputs, M)
-    _, _, bwd = _kernels()
+    *_, bwd = _kernels()
     grads = torch.empty((4, B, H, W), dtype=torch.float32, device=ey.device)
     if B * M * H * W == 0:
         return grads.zero_().unbind(0)

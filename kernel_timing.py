@@ -14,17 +14,10 @@ times its kernels with these.
     python3 kernel_timing.py [--split] DIR
 
 runs the kernel phases (3, 7 and 10) of another checkout's ``chip_smoke.py``
-(a parent commit unpacked with ``git archive``, say) on its own package, on
-one CUDA device. A checkout from before this module gives no kernel's own
-time: there the hook is this module's, and before each line that prints a
-wrapper time it prints one ``[own]`` line, the kernels' own time measured as
-above and the device kernels a call launches. A checkout with its own
-``kernel_timing.py`` prints those itself, with its own hook. ``--split``
-(checkouts with their own ``kernel_timing.py``) adds, before each kernel
-line, a ``[split]`` line: each device kernel's time per call from the
-profiler window (``device_split``), and after the phases K6 alone on the
-train cell's and the full-resolution count maps with their real ``has``
-and with ``has`` all false (every slab padding).
+(a parent commit unpacked with ``git archive``, say) on its own package and
+its own ``kernel_timing.py``, on one CUDA device. ``--split`` adds, before
+each kernel line, a ``[split]`` line: each device kernel's time per call
+from one profiler window (``device_split``).
 """
 
 from __future__ import annotations
@@ -38,10 +31,8 @@ import torch
 
 ITERS = 20
 # the port's kernels, by name, for telling them from PyTorch's in a profile
-# (this tree's, and the older ones' that ``main`` times)
-PORT_KERNELS = ("affinity_kernel", "cnt_r2_kernel", "minr2_kernel", "nmap_kernel",
-                "nmap_bin_kernel", "nmap_band_kernel", "ae_fwd_kernel", "ae_sum_kernel",
-                "ae_reduce_kernel", "ae_bwd_kernel")
+PORT_KERNELS = ("affinity_kernel", "cnt_r2_kernel", "minr2_kernel", "nmap_bin_kernel",
+                "nmap_band_kernel", "ae_fwd_kernel", "ae_sum_kernel", "ae_bwd_kernel")
 _replays = None                  # inside own_ms: the device ms of each launch
 
 
@@ -146,25 +137,6 @@ def device_split(fn, calls: int = 10) -> dict:
     return split
 
 
-def _k6_split(smoke, timing, dev) -> None:
-    """K6 alone on the count maps of the train cell and of the full
-    resolution, with their ``has`` and with every slab padding."""
-    for name, shape in (("train cell", smoke.TRAIN_SHAPE), ("full resolution", smoke.FULLRES_SHAPE)):
-        b, m, p, h, w = shape
-        labels = (smoke.bench_train_batch(b, m, h, w, edge_cases=True)[1]
-                  if shape == smoke.TRAIN_SHAPE else smoke.fullres_batch(b, m, h, w)[1])
-        t = smoke.generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w,
-                                   max_points=p)
-        cnt = smoke.losses.ae_sample_count(t, h, w)
-        has = t.pt_valid.any(dim=2)
-        for which, flags in (("real has", has), ("has all false", torch.zeros_like(has))):
-            ms, n = timing.own_ms(lambda: smoke.minr2.minr2_from_cnt(cnt, flags))
-            print(f"[split] K6 {name} B,M,P,H,W={shape}, {which} ({int(flags.sum())} of "
-                  f"{b * m} slabs live): alone {ms:.4f} ms in {n} launches; "
-                  f"{_split_text(device_split(lambda: smoke.minr2.minr2_from_cnt(cnt, flags)))}",
-                  flush=True)
-
-
 def _split_text(split: dict) -> str:
     return ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
 
@@ -173,38 +145,18 @@ def main() -> None:
     args = sys.argv[1:]
     split = "--split" in args
     (tree,) = [Path(a).resolve() for a in args if a != "--split"]
-    own_tree = (tree / "kernel_timing.py").exists()
-    if split and not own_tree:
-        raise SystemExit("--split takes a checkout with its own kernel_timing.py")
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("tree_chip_smoke", tree / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    if own_tree:
-        timing = smoke.kernel_timing
-        timing.hook(smoke.build)
-        if split:
-            own_time = smoke.own_time
+    smoke.kernel_timing.hook(smoke.build)
+    if split:
+        own_time = smoke.own_time
 
-            def split_own_time(fn):
-                print(f"[split] {_split_text(device_split(fn))}", flush=True)
-                return own_time(fn)
-            smoke.own_time = split_own_time
-    else:
-        timing = sys.modules[__name__]
-        hook(smoke.build)
-        wrapper_ms = smoke.cuda_median_ms
-
-        def timed(fn, iters: int = 20) -> float:
-            ms = wrapper_ms(fn, iters)
-            own, n = own_ms(fn)
-            if n:
-                total, port = kernels_per_call(fn)
-                print(f"[own] {own:.4f} ms in {n} launches a call (queued, {ITERS} each); "
-                      f"{total} device kernels a call ({port} the port's)", flush=True)
-            return ms
-
-        smoke.cuda_median_ms = timed
+        def split_own_time(fn):
+            print(f"[split] {_split_text(device_split(fn))}", flush=True)
+            return own_time(fn)
+        smoke.own_time = split_own_time
     dev = smoke.require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -216,8 +168,6 @@ def main() -> None:
     smoke.phase_affinity(dev)
     smoke.phase_train_kernels(dev)
     smoke.phase_minr2(dev)
-    if split:
-        _k6_split(smoke, timing, dev)
 
 
 if __name__ == "__main__":

@@ -275,13 +275,15 @@ def port_ae_inputs(targets, fields):
             tae.tile_presence(targets.points, targets.pt_valid, H, W))
 
 
-@pytest.mark.parametrize("labels", list(LABELS))
-def test_ae_terms_and_gradient_match_pallas(labels, interpret):
+def hold_ae_terms_to_pallas(port_in, jax_in):
+    """The port's (pos, neg, npos, pull) to rtol 1e-5 of the reference's, and
+    the gradient of a weighted sum of pos, neg and pull within 1e-4 of its
+    max|g|; returns the port's terms."""
     import jax
     import jax.numpy as jnp
     import instance_segmentation_tpu.losses.ae_pallas as aep
     from instance_segmentation_tpu.losses import losses as jl
-    port_in, (fields_j, r2, cnt, tab_j, anyp, cntp_j) = ae_inputs(labels)
+    fields_j, r2, cnt, tab_j, anyp, cntp_j = jax_in
     fields_t, *rest = port_in
     got = tae.ae_terms(*fields_t, *rest)
     table = tuple(sorted(jl._NEG4_TABLE.items()))
@@ -303,6 +305,34 @@ def test_ae_terms_and_gradient_match_pallas(labels, interpret):
     grads_t = torch.autograd.grad((wt[0] * pos + wt[1] * neg + wt[2] * pull).sum(), fields_t)
     for g, w in zip(grads_t, grads_j):
         assert _rel(g.numpy(), np.asarray(w)) <= GRAD_TOL
+    return got
+
+
+@pytest.mark.parametrize("labels", list(LABELS))
+def test_ae_terms_and_gradient_match_pallas(labels, interpret):
+    hold_ae_terms_to_pallas(*ae_inputs(labels))
+
+
+NOT_VALID = ((0, 1), (1, 3))    # (image, instance) with samples but no valid flag
+
+
+def test_ae_terms_sum_the_pull_of_instances_without_a_valid_flag(interpret):
+    """Instances whose valid flag is 0 but which have samples (input the loss
+    never builds): no focal terms, their pull summed and differentiated with
+    dmax over the valid centers, as in the reference. Their windows are
+    emptied too, since the reference's focal window ignores the flag."""
+    port_in, jax_in = ae_inputs("octagons")
+    tab, tab_j = port_in[3].clone(), jax_in[3]
+    for b, m in NOT_VALID:
+        assert bool(port_in[2][b, m].view(torch.int16).ne(0).any())
+        assert float(tab[b, m, tae.VALID]) > 0
+        tab[b, m, tae.LT0:tae.VALID + 1] = 0.0
+        tab_j = tab_j.at[b, tae.LT0:tae.VALID + 1, m].set(0.0)
+    got = hold_ae_terms_to_pallas((*port_in[:3], tab, *port_in[4:]),
+                                  (*jax_in[:3], tab_j, *jax_in[4:]))
+    for b, m in NOT_VALID:
+        assert [float(x[b, m].detach()) for x in got[:3]] == [0.0, 0.0, 0.0]
+        assert float(got[3][b, m].detach()) > 0.0
 
 
 def test_tile_presence_marks_every_sample_tile():
@@ -493,9 +523,8 @@ def test_kernel_sources_name_what_they_replace():
     assert f"kTileH = {tae.TILE_H};" in src and f"kTileW = {tae.TILE_W};" in src
     assert f"kMaxM = {tae.MAX_M};" in src
     assert f"kTabW = {tae.pack_table(*[torch.zeros(1, 1, 2)] * 3, torch.zeros(1, 1)).shape[-1]};" in src
-    # K3's partials [B, M, ntiles] float4, as the wrapper allocates them
-    assert "float4* __restrict__ partial) {    // [B, M, ntiles]" in src
-    assert "partial[(slabs + s.slot[k]) * ntiles + tile] = sum;" in src
+    # K3's scratch is sized by the kernel's own entry point (ctypes c_longlong)
+    assert 'extern "C" long long iseg_ae_partial_floats(int B, int M, int H, int W) {' in src
     from instance_segmentation_torch.kernels import minr2
     src = (build.CSRC / "rasterize.cu").read_text()
     assert f"kBandH = {minr2.BAND_H};" in src and f"kBandW = {minr2.BAND_W};" in src
@@ -550,8 +579,12 @@ def test_rasterizers_match_twins_on_card(cuda_device):
         assert torch.equal(g.cpu().view(torch.int32), w_.view(torch.int32))
 
 
-@pytest.mark.cuda
-def test_ae_terms_match_twin_on_card(cuda_device):
+def _hold_ae_terms_to_twin_on_card(cuda_device, not_valid=()):
+    """K3 to rtol 1e-5 of the twin and bitwise equal across two launches, K4
+    through the autograd.Function within 1e-4 of max|g| of the twin's
+    autograd, on the card points with the (image, instance) pairs
+    ``not_valid`` keeping their samples but losing their valid flag. Returns
+    K3's terms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t = _card_points(cuda_device)
     cnt, r2, _ = trz.rasterize_cnt_r2(t.points, t.pt_valid, H, W)
@@ -561,7 +594,10 @@ def test_ae_terms_match_twin_on_card(cuda_device):
     fields = [torch.tanh(planes[0]) + xym[..., 0], torch.tanh(planes[1]) + xym[..., 1],
               torch.exp(planes[2]), torch.exp(planes[3])]
     fields = [f.contiguous().requires_grad_() for f in fields]
-    rest = (r2, cnt, tl.ae_table(t, xym, H, W), tae.neg4_lut(tl._NEG4_TABLE, cuda_device),
+    tab = tl.ae_table(t, xym, H, W)
+    for b, m in not_valid:
+        tab[b, m, tae.VALID] = 0.0
+    rest = (r2, cnt, tab, tae.neg4_lut(tl._NEG4_TABLE, cuda_device),
             tae.tile_presence(t.points, t.pt_valid, H, W))
     wts = torch.randn((3, B, M), generator=torch.Generator().manual_seed(0)).to(cuda_device)
     results = []
@@ -579,3 +615,29 @@ def test_ae_terms_match_twin_on_card(cuda_device):
         assert torch.equal(g.detach().view(torch.int32), a.view(torch.int32))
     for g, w in zip(g_got, g_want):
         assert float((g - w).abs().max()) <= GRAD_TOL * float(w.abs().max())
+    return got
+
+
+@pytest.mark.cuda
+def test_ae_terms_match_twin_on_card(cuda_device):
+    _hold_ae_terms_to_twin_on_card(cuda_device)
+    # the scratch of K3: a float4 partial per (image, instance, tile)
+    _, partial_floats, _, _ = tae._kernels()
+    nh, nw = tae.num_tiles(H, W)
+    assert partial_floats(B, M, H, W) == B * M * nh * nw * 4
+
+
+@pytest.mark.cuda
+def test_ae_terms_sum_the_pull_of_instances_without_a_valid_flag_on_card(cuda_device):
+    """As on the CPU, with the windows kept: the kernels and the twin both
+    take the window only of a valid instance; among the tiles holding the
+    samples of such an instance, some hold no other instance's."""
+    t = _card_points(cuda_device)
+    presence = tae.presence_dense(tae.tile_presence(t.points, t.pt_valid, H, W), M)
+    for b, m in NOT_VALID:
+        alone = presence[b, m] & ~presence[b, torch.arange(M, device=cuda_device) != m].any(0)
+        assert bool(alone.any()), (b, m)
+    got = _hold_ae_terms_to_twin_on_card(cuda_device, NOT_VALID)
+    for b, m in NOT_VALID:
+        assert [float(x[b, m].detach()) for x in got[:3]] == [0.0, 0.0, 0.0]
+        assert float(got[3][b, m].detach()) > 0.0
