@@ -8,14 +8,20 @@ Phases, one result line each; any failure raises and exits non-zero:
   2. build kernel K1 (``csrc/affinity.cu``) from the sources in the checkout
      (the other kernels' ``nvcc`` runs at the same time), with what
      ``nvcc -Xptxas -v`` says of its registers, spills and shared memory;
-  3. K1 against its plain PyTorch version on the card at main-path shapes
-     (B=8, K=20000, D=96), with keypoints in no box, invalid detections and
-     duplicate centers (exact ties); kernel and plain times (CUDA events);
+  3. K1 against its plain PyTorch version computed on the CPU at main-path
+     shapes (B=8, K=20000, D=96), with keypoints in no box, invalid
+     detections and duplicate centers (exact ties), the keypoints in random
+     order and in the decode's ascending pixel order; wrapper, twin (on the
+     card) and kernel-alone times beside the bound; then on edge cases (NaN,
+     inf and underflow in the scores, D = 1 and 1024, K not a multiple of
+     the block, no box near the keypoints), in both orders;
   4. decode of a synthetic two-square scene on the card (through K1) against
      the same decode on the CPU (plain grouping);
   5. the serving slice: an EfficientSeg-B3 ``Predictor`` in bf16 at 512x1024
      (frames of a 1024x2048 image at scale 2), seeded untrained weights,
-     default decode, answering 3 requests at batch 1 and 3 at batch 8;
+     default decode, answering 3 requests at batch 1 and 3 at batch 8; then
+     K1 held and timed as in phase 3 on the inputs it got in the first b8
+     call (a warm-up);
   6. build kernels K2-K6 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``), one
      ``-Xptxas -v`` line per kernel;
   7. K2, K5, K3 and K4 against their plain twins at the train cell's shapes
@@ -54,7 +60,7 @@ Phases, one result line each; any failure raises and exits non-zero:
      and K5 once a step and K2 never on the count-map route; K5 alone on
      the windowed one.
 
-Beside every timed wrapper (phases 3, 7 and 10) ``kernel_timing.py``
+Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
 again on the inputs the wrapper prepared, queued, no host gaps) and, from
 a ``torch.profiler`` window, how many device kernels one call launches,
@@ -82,6 +88,7 @@ from instance_segmentation_torch.device import nvidia_smi_name_power, require_cu
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSegConfig, generate_anchors
+from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
 from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.serve import Predictor
@@ -139,13 +146,20 @@ def synthetic_scene(h: int = 128, w: int = 192, margin: float = 0.0):
     return (kp, ae, tan, reg, cls_prob), anchors
 
 
-def affinity_inputs(b: int, k: int, d: int, seed: int = 0):
+def affinity_inputs(b: int, k: int, d: int, seed: int = 0, decode_order: bool = False):
     """Grouping inputs at decode shapes for a 512x1024 input: keypoints over
     the whole frame (many in no box), a quarter of the detections invalid,
-    and centers d+d/2 duplicating d (exact ties). Numpy float32/bool."""
+    and centers d+d/2 duplicating d (exact ties). With ``decode_order`` the
+    keypoints are unique pixels in ascending flat index, as
+    ``select_peaks_batch`` returns them; else drawn in random order, where
+    culling centers by the keypoints' rows cannot help. Numpy float32/bool."""
     rng = np.random.default_rng(seed)
-    kp_rc = np.stack([rng.integers(0, 512, (b, k)), rng.integers(0, 1024, (b, k))],
-                     axis=-1).astype(np.float32)
+    if decode_order:
+        flat = np.sort(np.stack([rng.choice(512 * 1024, k, replace=False) for _ in range(b)]))
+        kp_rc = np.stack([flat // 1024, flat % 1024], axis=-1).astype(np.float32)
+    else:
+        kp_rc = np.stack([rng.integers(0, 512, (b, k)), rng.integers(0, 1024, (b, k))],
+                         axis=-1).astype(np.float32)
     emb = np.stack([kp_rc[..., 0] / 1023.0, kp_rc[..., 1] * (2.0 / 2047.0)], -1)
     emb = (emb + rng.normal(0.0, 0.05, (b, k, 2))).astype(np.float32)
     sig = np.exp(rng.normal(3.0, 1.0, (b, k, 2))).astype(np.float32)
@@ -161,6 +175,94 @@ def affinity_inputs(b: int, k: int, d: int, seed: int = 0):
     boxes[:, half:2 * half] = boxes[:, :half]
     det_valid[:, half:2 * half] = det_valid[:, :half]
     return kp_rc, emb, sig, c_emb, boxes, det_valid
+
+
+def affinity_edge_cases():
+    """[(name, inputs)]: grouping inputs where NaN, inf and underflow decide
+    the result, and shapes at the kernel's limits, each in decode order and
+    in random order. The scores follow the JAX decode's ``dists *
+    contained`` (NaN * 0 is NaN) and ``jnp.argmax`` (the first NaN wins)."""
+    def contained(a):
+        return affinity.contained_plain(*(torch.from_numpy(a[i]) for i in (0, 4, 5))).numpy()
+
+    def nan_emb(a):                  # NaN everywhere: slot 0, best NaN
+        inside = contained(a)[0].any(-1)
+        a[1][0, np.flatnonzero(inside)[:3], 0] = np.nan
+        a[1][0, np.flatnonzero(~inside)[:3], 1] = np.nan
+
+    def inf_sig_outside(a):          # 0 * inf at center 5 only: slot 5, NaN
+        out = np.flatnonzero(~contained(a)[0].any(-1))[:4]
+        a[2][0, out, 0] = np.inf
+        a[1][0, out, 0] = a[3][0, 5, 0]
+
+    def zero_sig(a):                 # sig 0: score 1 in every box; inf * 0
+        a[2][0, np.flatnonzero(contained(a)[0].any(-1))[:4]] = 0.0
+        a[3][1, 0, 0] = 2e19         # dy^2 overflows for every center but 0
+        a[1][1, :5, 0] = 2e19
+        a[2][1, :5, 0] = 0.0
+
+    def nonfinite_c_emb(a):          # invalid detections: NaN * 0 is NaN
+        a[3][0, 3, 0] = np.nan
+        a[5][0, 3] = False
+        a[3][1, 2, 1] = np.inf
+        a[5][1, 2] = False
+
+    def underflow(a):                # contained, but every score 0: slot 0
+        c = contained(a)[0]
+        late = np.flatnonzero(c.any(-1) & ~c[:, 0])[:6]
+        a[2][0, late] = 1e30
+
+    def empty_lists(a):              # no box meets the keypoints' rows
+        a[0][..., 0] = np.floor(a[0][..., 0] / 4)
+        a[4][..., 1] = 200 + a[4][..., 1] % 100
+        a[4][..., 3] = a[4][..., 1] + 50
+        a[3][1, 4] = np.nan          # the NaN rule still applies
+
+    cases = []
+    for order in ("decode order", "random order"):
+        def make(b, k, d, seed, edit=None):
+            a = list(affinity_inputs(b, k, d, seed, decode_order=order == "decode order"))
+            if edit is not None:
+                edit(a)
+            return tuple(a)
+        cases += [
+            (f"NaN embedding in and out of boxes, {order}", make(1, 300, 16, 1, nan_emb)),
+            (f"sig inf with dy 0 in no box, {order}", make(1, 300, 16, 2, inf_sig_outside)),
+            (f"sig 0, dy^2 overflowing, {order}", make(2, 300, 16, 3, zero_sig)),
+            (f"non-finite c_emb of invalid detections, {order}",
+             make(2, 300, 16, 4, nonfinite_c_emb)),
+            (f"contained scores underflowing to 0, {order}", make(1, 300, 16, 5, underflow)),
+            (f"D=1, K=1037, {order}", make(2, 1037, 1, 6)),
+            (f"D=1024, K=3000, {order}", make(1, 3000, 1024, 7)),
+            (f"every culled list empty, {order}", make(2, 2000, 16, 8, empty_lists)),
+        ]
+    return cases
+
+
+def against_cpu_twin(assign: torch.Tensor, best: torch.Tensor, inputs) -> dict:
+    """K1's (assign, best) against the plain grouping computed on the CPU:
+    best to rtol 1e-6 with NaN where the twin has NaN, assign equal outside
+    near ties (a row without NaN whose top score has another score within
+    1e-6 of it that is not equal to it: the card's expf and the CPU's exp
+    may differ in the last bit)."""
+    cpu = [t.cpu() for t in inputs]
+    scored = affinity.affinity_scores_plain(*cpu)
+    b_p, a_p = scored.max(dim=-1)
+    nan = b_p.isnan()
+    top = b_p[..., None]
+    runner_up = scored.masked_fill((scored == top) | scored.isnan(), -1.0).amax(-1)
+    near = (b_p - runner_up <= 1e-6 * b_p) & ~nan
+    a_k, b_k = assign.cpu(), best.cpu()
+    mismatch = a_k != a_p.int()
+    finite = ~nan & ~b_k.isnan()
+    return {"mismatch": int(mismatch.sum()), "bad": int((mismatch & ~near).sum()),
+            "near": int(near.sum()),
+            "exact_ties": int((((scored == top).sum(-1) > 1) & (b_p > 0)).sum()),
+            "best_ok": bool(torch.allclose(b_k, b_p, rtol=1e-6, atol=0.0, equal_nan=True)),
+            "nan": int(nan.sum()),
+            "max_abs": float((b_k - b_p)[finite].abs().max()) if bool(finite.any()) else 0.0,
+            "in_no_box": int((~affinity.contained_plain(
+                cpu[0], cpu[4], cpu[5]).any(-1)).sum())}
 
 
 def cuda_median_ms(fn, iters: int = 20) -> float:
@@ -205,50 +307,99 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def phase_affinity(dev: torch.device) -> dict:
-    """K1 vs plain at main-path shapes; returns the kernel's record."""
-    inputs = [torch.from_numpy(a).to(dev) for a in affinity_inputs(*AFFINITY_SHAPE)]
+def culled_lists(kp_rc: torch.Tensor, boxes: torch.Tensor, det_valid: torch.Tensor):
+    """K1's culled lists, one a warp: the valid centers whose box meets the
+    bounding rectangle of 32 consecutive keypoints. Returns their mean and
+    their largest length."""
+    b, k = kp_rc.shape[:2]
+    rc = torch.nn.functional.pad(kp_rc, (0, 0, 0, (-k) % 32), value=float("nan"))
+    rc = rc.view(b, -1, 32, 2)
+    placed = ~rc.isnan().any(-1, keepdim=True)
+    lo = rc.masked_fill(~placed, float("inf")).amin(2)                # [B, warps, 2]
+    hi = rc.masked_fill(~placed, float("-inf")).amax(2)
+    kept = ((boxes[:, None, :, 1] <= hi[..., 0:1]) & (boxes[:, None, :, 3] >= lo[..., 0:1]) &
+            (boxes[:, None, :, 0] <= hi[..., 1:2]) & (boxes[:, None, :, 2] >= lo[..., 1:2]) &
+            det_valid[:, None, :]).sum(-1)                            # [B, warps]
+    return float(kept.float().mean()), int(kept.max())
+
+
+def hold_affinity(phase: int, what: str, inputs, strict: bool = True) -> dict:
+    """K1 against its plain twin on the CPU, timed against the twin on the
+    card and the bound, on grouping inputs at main-path shapes; prints a line
+    and returns the kernel's record (launches filled in by the serving
+    slice). A difference raises when ``strict``, else it is printed."""
     a_k, b_k = affinity.affinity_assign(*inputs)
-    a_p, b_p = affinity.affinity_assign_plain(*inputs)
     torch.cuda.synchronize()
-    # the plain scores' top two per keypoint, to tell near ties apart
-    kp_rc, emb, sig, c_emb, boxes, det_valid = inputs
-    contained = ((kp_rc[..., 0:1] >= boxes[:, None, :, 1]) &
-                 (kp_rc[..., 0:1] <= boxes[:, None, :, 3]) &
-                 (kp_rc[..., 1:2] >= boxes[:, None, :, 0]) &
-                 (kp_rc[..., 1:2] <= boxes[:, None, :, 2]) & det_valid[:, None, :])
-    scored = torch.exp(-(((emb[:, :, None] - c_emb[:, None]) ** 2)
-                         * sig[:, :, None]).sum(-1)) * contained.float()
-    top2 = scored.topk(2, dim=-1).values
-    # near ties (not exact ones: those, and keypoints in no box, must agree)
-    near = ((top2[..., 0] - top2[..., 1]) <= 1e-6 * top2[..., 0]) & (
-        top2[..., 0] != top2[..., 1])
-    exact_tie = (top2[..., 0] == top2[..., 1]) & (top2[..., 0] > 0)
-    mismatch = a_k != a_p
-    bad = int((mismatch & ~near).sum())
-    max_abs = float((b_k - b_p).abs().max())
-    check(bad == 0, f"K1 assign differs from plain at {bad} keypoints outside near ties")
-    check(torch.allclose(b_k, b_p, rtol=1e-6, atol=0.0), f"K1 best off by {max_abs}")
-    in_no_box = int((~contained.any(-1)).sum())
+    cmp = against_cpu_twin(a_k, b_k, inputs)
+    if strict:
+        check(cmp["bad"] == 0, f"K1 assign differs from the twin at {cmp['bad']} keypoints "
+              f"outside near ties ({what})")
+        check(cmp["best_ok"], f"K1 best off by {cmp['max_abs']} or NaN elsewhere ({what})")
+    elif cmp["bad"] or not cmp["best_ok"]:
+        print(f"[{phase}] K1 DIFFERS from the twin on the CPU ({what}): {cmp}", flush=True)
     ms = cuda_median_ms(lambda: affinity.affinity_assign(*inputs))
     plain_ms = cuda_median_ms(lambda: affinity.affinity_assign_plain(*inputs))
     alone = own_time(lambda: affinity.affinity_assign(*inputs))
-    print(f"[3] K1 vs plain B,K,D={AFFINITY_SHAPE}: assign mismatches {int(mismatch.sum())} "
-          f"(near ties {int(near.sum())}, exact ties {int(exact_tie.sum())}; all agree "
-          f"outside near ties), keypoints in no box {in_no_box}, best max|err| {max_abs:.3g}"
-          f" (rtol 1e-6); wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20); "
+    kp_rc, emb, sig, _, boxes, det_valid = inputs
+    (b, k), d = kp_rc.shape[:2], boxes.shape[1]
+    # keypoints the kernel scores against every center (see csrc/affinity.cu)
+    odd = int((~(emb.isfinite().all(-1) & (sig > 0).all(-1) & sig.isfinite().all(-1))).sum())
+    lists = culled_lists(kp_rc, boxes, det_valid)
+    contained = int(affinity.contained_plain(kp_rc, boxes, det_valid).sum())
+    valid_pairs = k * int(det_valid.sum())
+    # reads row/col, embedding and sigma (24 B) and writes assign and best
+    # (8 B) per keypoint, and the center table; the work the function needs:
+    # a containment test (4 compares) per (keypoint, valid center) pair, and
+    # per contained pair 2 sub, 4 mul, 1 add, 1 neg, 1 exp and the max (10)
+    n_bytes = b * k * (24 + 8) + b * d * (8 + 16 + 1)
+    bound_ms, bound_by = bound(n_bytes, 4 * valid_pairs + 10 * contained)
+    # the earlier bound: 14 operations for every (keypoint, center) pair
+    old_ms, old_by = bound(n_bytes, b * k * d * 14)
+    print(f"[{phase}] K1 vs twin (CPU) B,K,D={(b, k, d)}, {what}: assign mismatches "
+          f"{cmp['mismatch']} (near ties {cmp['near']}, exact ties {cmp['exact_ties']}; all "
+          f"agree outside near ties), keypoints in no box {cmp['in_no_box']}, {contained} "
+          f"contained pairs of {valid_pairs} valid, centers kept a warp: mean "
+          f"{lists[0]:.1f}, max {lists[1]} of {int(det_valid.sum()) / b:.1f} valid; "
+          f"keypoints scored against every center {odd}, best max|err| "
+          f"{cmp['max_abs']:.3g} (rtol 1e-6); wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms "
+          f"(median of 20), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; earlier bound {old_ms:.4f} ms, {old_by}), share "
+          f"alone {bound_ms / alone[0]:.0%} (earlier bound {old_ms / alone[0]:.0%}); "
           f"{own_text(alone)}", flush=True)
-    b, k, d = AFFINITY_SHAPE
-    # reads row/col, embedding and sigma per keypoint and the center table,
-    # writes assign and best; per (keypoint, center): 2 sub, 4 mul, 1 add,
-    # 1 neg, 1 exp, 4 compares and the containment product, 14 operations
-    bound_ms, bound_by = bound(b * k * 6 * 4 + b * d * (6 * 4 + 1) + b * k * 8, b * k * d * 14)
     return {"name": "affinity_assign", "route": "cuda",
             "source": "instance_segmentation_torch/csrc/affinity.cu",
             "replaces": "instance_segmentation_tpu/ops/pallas_kernels.py:77",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "kernel_ms": alone[0],
-            "kernels_per_call": alone[1]}
+            "max_abs_err": cmp["max_abs"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_ms": alone[0], "kernels_per_call": alone[1]}
+
+
+def hold_affinity_edge_cases(dev: torch.device, strict: bool = True) -> None:
+    """K1 against its twin on the CPU on ``affinity_edge_cases``: assign
+    equal outside near ties, best to rtol 1e-6 and NaN where the twin's is.
+    Prints a line per case; a difference raises when ``strict``."""
+    for name, arrays in affinity_edge_cases():
+        inputs = [torch.from_numpy(a).to(dev) for a in arrays]
+        a_k, b_k = affinity.affinity_assign(*inputs)
+        torch.cuda.synchronize()
+        cmp = against_cpu_twin(a_k, b_k, inputs)
+        ok = cmp["bad"] == 0 and cmp["best_ok"]
+        if strict:
+            check(ok, f"K1 differs from the twin on the CPU ({name}): {cmp}")
+        print(f"[3] K1 edge case, {name}: {'equal to' if ok else 'DIFFERS from'} the twin on "
+              f"the CPU (NaN best {cmp['nan']}, keypoints in no box {cmp['in_no_box']}, "
+              f"assign mismatches {cmp['mismatch']}, near ties {cmp['near']})", flush=True)
+
+
+def phase_affinity(dev: torch.device, strict: bool = True) -> None:
+    """K1 against its twin at main-path shapes, keypoints in random order and
+    in decode order, and on the edge cases."""
+    for what, order in (("keypoints in random order", False),
+                        ("keypoints in decode order", True)):
+        inputs = [torch.from_numpy(a).to(dev)
+                  for a in affinity_inputs(*AFFINITY_SHAPE, decode_order=order)]
+        hold_affinity(3, what, inputs, strict)
+    hold_affinity_edge_cases(dev, strict)
 
 
 def phase_decode(dev: torch.device) -> None:
@@ -279,16 +430,26 @@ def phase_decode(dev: torch.device) -> None:
           f"fields, floats max|diff| {worst:.3g} (tol 1e-5)", flush=True)
 
 
-def phase_slice(dev: torch.device, smi: str) -> int:
+def phase_slice(dev: torch.device, smi: str):
     """B3 512x1024 bf16 Predictor: 3 requests at b1 and 3 at b8. Returns the
-    number of K1 launches made by those requests."""
+    number of K1 launches made by those requests and the inputs K1 got in
+    the first b8 call (a warm-up)."""
     cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
     dcfg = DecodeConfig()
     pred = Predictor(cfg, dcfg, torch.Generator().manual_seed(0), dev,
                      orig_hw=(1024, 2048), scale=2.0)
     frames = np.random.default_rng(0).integers(0, 256, (8, 512, 1024, 3), dtype=np.uint8)
-    for b in (1, 8):                      # warm-up, not counted
-        pred.predict(frames[:b])
+    served = []                           # the first b8 call's grouping inputs
+
+    def capture(*args):
+        served.extend(a.clone() for a in args)
+        return affinity.affinity_assign(*args)
+    pred.predict(frames[:1])              # warm-up, not counted
+    decode.affinity_assign = capture
+    try:
+        pred.predict(frames)
+    finally:
+        decode.affinity_assign = affinity.affinity_assign
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -324,7 +485,7 @@ def phase_slice(dev: torch.device, smi: str) -> int:
     print(f"[5] K1 launches in the 6 requests: {launches}; detections {n_det}, "
           f"objects {n_obj}; peak device memory {peak} B ({peak / 2**30:.2f} GiB); "
           f"[{smi}]", flush=True)
-    return launches
+    return launches, served
 
 
 def visited_tiles(tab: torch.Tensor, cntp: torch.Tensor, h: int, w: int):
@@ -768,9 +929,11 @@ def main() -> None:
     print(f"[2] built K1 {lib.relative_to(build.BUILD_DIR.parents[1])} in "
           f"{seconds:.2f} s; ptxas: {'; '.join(build.ptxas_usage('affinity'))}", flush=True)
 
-    record = phase_affinity(dev)
+    phase_affinity(dev)
     phase_decode(dev)
-    record["launches"] = phase_slice(dev, smi)
+    launches, served = phase_slice(dev, smi)
+    record = hold_affinity(5, "the serving slice's first b8 call", served)
+    record["launches"] = launches
 
     for kernel in KERNELS[1:]:
         build.load(kernel)

@@ -1,10 +1,15 @@
 """Kernel K1: keypoint -> center affinity grouping (``csrc/affinity.cu``).
 
 Replaces ``instance_segmentation_tpu/ops/pallas_kernels.py:affinity_assign``,
-batched over images. For each keypoint: box containment x det_valid x
-``exp(-sum((emb - c_emb)^2 * sig))`` over the centers, then the first-max
-argmax (``assign``, int32) and the max (``best``, float32). A keypoint in no
-box gets slot 0.
+batched over images, and computes the JAX decode's grouping expression
+(``ops/decode.py``: ``dists * contained``, then ``jnp.argmax``). For each
+keypoint: box containment x det_valid x ``exp(-sum((emb - c_emb)^2 * sig))``
+over the centers, then the first-max argmax (``assign``, int32) and the max
+(``best``, float32). A keypoint whose scores are all 0 gets slot 0. A NaN
+score counts above every number and the first NaN wins, and NaN * 0 is NaN,
+so a NaN can come from a pair outside its box: the expression's own rules,
+op by op (under ``jax.jit`` XLA rewrites the product into a select, which
+scores an outside pair 0).
 
 ``affinity_assign`` runs the CUDA kernel on CUDA tensors and the plain
 PyTorch version on CPU tensors; any other device raises. ``launches``
@@ -25,19 +30,34 @@ MAX_CENTERS = 1024
 launches = 0
 
 
+def contained_plain(kp_rc: torch.Tensor, boxes: torch.Tensor,
+                    det_valid: torch.Tensor) -> torch.Tensor:
+    """[B,K,D] bool: keypoint k lies in the box of valid detection d."""
+    row, col = kp_rc[..., 0:1], kp_rc[..., 1:2]                        # [B,K,1]
+    return ((row >= boxes[:, None, :, 1]) & (row <= boxes[:, None, :, 3]) &
+            (col >= boxes[:, None, :, 0]) & (col <= boxes[:, None, :, 2]) &
+            det_valid[:, None, :])
+
+
+def affinity_scores_plain(kp_rc: torch.Tensor, emb: torch.Tensor, sig: torch.Tensor,
+                          c_emb: torch.Tensor, boxes: torch.Tensor,
+                          det_valid: torch.Tensor) -> torch.Tensor:
+    """The reference's dense scores (``ops/decode.py`` grouping), [B,K,D]:
+    ``exp(-sum((emb - c_emb)^2 * sig)) * contained``. A NaN stays NaN outside
+    the box too (NaN * 0)."""
+    dists = torch.exp(-(((emb[:, :, None, :] - c_emb[:, None, :, :]) ** 2)
+                        * sig[:, :, None, :]).sum(dim=-1))              # [B,K,D]
+    return dists * contained_plain(kp_rc, boxes, det_valid).float()
+
+
 def affinity_assign_plain(kp_rc: torch.Tensor, emb: torch.Tensor, sig: torch.Tensor,
                           c_emb: torch.Tensor, boxes: torch.Tensor,
                           det_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's dense form (``ops/decode.py`` grouping), batched:
-    kp_rc/emb/sig [B,K,2], c_emb [B,D,2], boxes [B,D,4] (x1,y1,x2,y2),
-    det_valid [B,D] -> (assign [B,K] int32, best [B,K] float32)."""
-    row, col = kp_rc[..., 0:1], kp_rc[..., 1:2]                        # [B,K,1]
-    contained = ((row >= boxes[:, None, :, 1]) & (row <= boxes[:, None, :, 3]) &
-                 (col >= boxes[:, None, :, 0]) & (col <= boxes[:, None, :, 2]) &
-                 det_valid[:, None, :])                                 # [B,K,D]
-    dists = torch.exp(-(((emb[:, :, None, :] - c_emb[:, None, :, :]) ** 2)
-                        * sig[:, :, None, :]).sum(dim=-1))              # [B,K,D]
-    best, assign = (dists * contained.float()).max(dim=-1)
+    """The reference's grouping, batched: kp_rc/emb/sig [B,K,2], c_emb
+    [B,D,2], boxes [B,D,4] (x1,y1,x2,y2), det_valid [B,D] -> (assign [B,K]
+    int32, best [B,K] float32). ``max(dim)`` takes the first maximum and,
+    as ``jnp.argmax``, the first NaN over any number (on the CPU)."""
+    best, assign = affinity_scores_plain(kp_rc, emb, sig, c_emb, boxes, det_valid).max(dim=-1)
     return assign.int(), best
 
 
@@ -75,8 +95,11 @@ def _kernel():
 def _launch(kp_rc, emb, sig, c_emb, boxes, det_valid):
     global launches
     B, K, D = _check(kp_rc, emb, sig, c_emb, boxes, det_valid)
-    assign = torch.empty((B, K), dtype=torch.int32, device=kp_rc.device)
-    best = torch.empty((B, K), dtype=torch.float32, device=kp_rc.device)
+    if any(t.data_ptr() % 8 for t in (kp_rc, emb, sig)):
+        raise ValueError("affinity kernel reads kp_rc, emb and sig as 8-byte pairs: "
+                         "they must be 8-byte aligned")
+    out = torch.empty((2, B, K), dtype=torch.int32, device=kp_rc.device)   # one allocation
+    assign, best = out[0], out[1].view(torch.float32)
     if B * K == 0:
         return assign, best
     err = build.launch(_kernel(), kp_rc.device, kp_rc.data_ptr(), emb.data_ptr(),

@@ -15,9 +15,21 @@ times its kernels with these.
 
 runs the kernel phases (3, 7 and 10) of another checkout's ``chip_smoke.py``
 (a parent commit unpacked with ``git archive``, say) on its own package and
-its own ``kernel_timing.py``, on one CUDA device. ``--split`` adds, before
-each kernel line, a ``[split]`` line: each device kernel's time per call
-from one profiler window (``device_split``).
+its own ``kernel_timing.py``, on one CUDA device.
+
+    python3 kernel_timing.py [--split] --k1-from DIR [DIR ...]
+
+runs this checkout's serving slice (phase 5) once, keeping the inputs K1
+gets in its first b8 call, then, for each DIR in turn, this checkout's K1
+phase 3 and those serving inputs with kernel K1 built from DIR's
+``instance_segmentation_torch/csrc/affinity.cu``: other versions of the
+kernel (its C entry point unchanged) on this checkout's inputs and wrapper,
+in one process. Differences from the twin are printed, not raised.
+``--k1-floor`` adds, last, this checkout's K1 cut down to reading its
+keypoint inputs and writing its outputs (``k1_floor_source``, built under
+``build/k1_floor``): what the card takes for K1's bytes alone, at its grid.
+``--split`` adds, before each kernel line, a ``[split]`` line: each device
+kernel's time per call from one profiler window (``device_split``).
 """
 
 from __future__ import annotations
@@ -137,6 +149,20 @@ def device_split(fn, calls: int = 10) -> dict:
     return split
 
 
+K1_STAGING = "  for (int d0 = 0; d0 < D; d0 += kThreads) {"
+
+
+def k1_floor_source(src: str) -> str:
+    """K1's source (``csrc/affinity.cu``) with the kernel returning right
+    after its keypoint loads, having written assign 0 and, as best, a sum of
+    the six loaded values (so that no load is dropped)."""
+    head, sep, tail = src.partition(K1_STAGING)
+    if not sep:
+        raise ValueError("K1's table staging loop not found")
+    return (head + "  if (active) {\n    assign[p] = 0;\n"
+            "    best[p] = rc.x + rc.y + e.x + e.y + s.x + s.y;\n  }\n  return;\n" + sep + tail)
+
+
 def _split_text(split: dict) -> str:
     return ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
 
@@ -144,12 +170,25 @@ def _split_text(split: dict) -> str:
 def main() -> None:
     args = sys.argv[1:]
     split = "--split" in args
-    (tree,) = [Path(a).resolve() for a in args if a != "--split"]
-    sys.path.insert(0, str(tree))
-    spec = importlib.util.spec_from_file_location("tree_chip_smoke", tree / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    smoke.kernel_timing.hook(smoke.build)
+    k1_from = "--k1-from" in args
+    trees = [Path(a).resolve() for a in args if a not in ("--split", "--k1-from", "--k1-floor")]
+    if k1_from:
+        import chip_smoke as smoke
+        if "--k1-floor" in args:
+            floor = smoke.build.BUILD_DIR.parent / "k1_floor"
+            (floor / "instance_segmentation_torch" / "csrc").mkdir(parents=True, exist_ok=True)
+            (floor / "instance_segmentation_torch" / "csrc" / "affinity.cu").write_text(
+                k1_floor_source((smoke.build.CSRC / "affinity.cu").read_text()))
+            trees.append(floor)
+    else:
+        (tree,) = trees
+        sys.path.insert(0, str(tree))
+        spec = importlib.util.spec_from_file_location("tree_chip_smoke", tree / "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+    load = smoke.build.load
+    if not k1_from:
+        smoke.kernel_timing.hook(smoke.build)
     if split:
         own_time = smoke.own_time
 
@@ -160,14 +199,31 @@ def main() -> None:
     dev = smoke.require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[1] {tree}: device {torch.cuda.get_device_name(0)}; nvidia-smi: "
-          f"{smoke.nvidia_smi_name_power()}", flush=True)
-    smoke.build.build_all(smoke.KERNELS)
-    for kernel in smoke.KERNELS:
-        smoke.build.load(kernel)
-    smoke.phase_affinity(dev)
-    smoke.phase_train_kernels(dev)
-    smoke.phase_minr2(dev)
+    smi = smoke.nvidia_smi_name_power()
+    print(f"[1] {' '.join(map(str, trees))}: device {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {smi}", flush=True)
+    if not k1_from:
+        smoke.build.build_all(smoke.KERNELS)
+        for kernel in smoke.KERNELS:
+            smoke.build.load(kernel)
+        smoke.phase_affinity(dev)
+        smoke.phase_train_kernels(dev)
+        smoke.phase_minr2(dev)
+        return
+    served = None
+    for tree in trees:
+        smoke.build.CSRC = tree / "instance_segmentation_torch" / "csrc"
+        load.cache_clear()                   # K1 from this tree's source, hooked once
+        smoke.build.load = load
+        smoke.kernel_timing.hook(smoke.build)
+        smoke.affinity._kernel.cache_clear()
+        lib = smoke.build.build("affinity")
+        print(f"[2] K1 from {smoke.build.CSRC / 'affinity.cu'}: {lib.name}; ptxas: "
+              f"{'; '.join(smoke.build.ptxas_usage('affinity'))}", flush=True)
+        if served is None:
+            _, served = smoke.phase_slice(dev, smi)
+        smoke.phase_affinity(dev, strict=False)
+        smoke.hold_affinity(5, "the serving slice's first b8 call", served, strict=False)
 
 
 if __name__ == "__main__":

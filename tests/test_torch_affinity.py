@@ -1,9 +1,11 @@
 """Kernel K1 (instance_segmentation_torch/kernels/affinity.py): the plain
 PyTorch version against the JAX Pallas kernel (interpret mode on the CPU)
-and against the reference's dense XLA grouping; the wrapper's dispatch and
-input checks; and, on a CUDA card only, the kernel against the plain
-version (marked ``cuda``). JAX is imported inside the tests that use it, so
-that the card test runs where JAX is absent:
+and against the reference's dense XLA grouping, on random, decode-ordered
+and edge-case inputs (NaN, inf and underflow in the scores); a numpy model
+of the kernel's culling and packed-key argmax against the XLA grouping; the
+wrapper's dispatch and input checks; and, on a CUDA card only, the kernel
+against the plain version (marked ``cuda``). JAX is imported inside the
+tests that use it, so that the card tests run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_affinity.py
 """
@@ -13,6 +15,11 @@ import pytest
 import torch
 
 from instance_segmentation_torch.kernels import affinity, build
+
+import chip_smoke
+
+EDGE_CASES = chip_smoke.affinity_edge_cases()
+EDGE_IDS = [name for name, _ in EDGE_CASES]
 
 torch.set_num_threads(2)
 
@@ -69,6 +76,124 @@ def test_plain_matches_xla_grouping():
     assert got[0].dtype == np.int32 and got[1].dtype == np.float32
     _assert_same_grouping(got, want)
     np.testing.assert_array_equal(got[0][want[1] == 0], 0)
+
+
+def _xla(arrays, jit=False):
+    """The XLA grouping of ``arrays``, op by op unless ``jit``. Under jit,
+    XLA rewrites ``dists * contained`` into a select (an outside NaN scores
+    0) and picks among several NaNs by its reduce order; op by op, the
+    expression's own rules hold: NaN * 0 is NaN, the first NaN wins."""
+    import jax
+    import jax.numpy as jnp
+    fn = jax.jit(_xla_grouping) if jit else _xla_grouping
+    with np.errstate(all="ignore"):
+        want = fn(*(jnp.asarray(x) for x in arrays))
+    return tuple(np.asarray(w) for w in want)
+
+
+def _assert_same_with_nan(got, want):
+    """assign exactly equal; best to rtol 1e-6, NaN where the reference's
+    is NaN."""
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_CASES)), ids=EDGE_IDS)
+def test_plain_matches_xla_grouping_on_edge_cases(case):
+    """NaN, inf and underflow in the scores: the twin takes the first NaN
+    (NaN * 0 being NaN) and slot 0 where every score is 0, as the grouping's
+    expression does op by op (numpy's rules)."""
+    arrays = EDGE_CASES[case][1]
+    with np.errstate(all="ignore"):
+        got = _plain(arrays)
+        no_nan = ~np.isnan(affinity.affinity_scores_plain(
+            *(torch.from_numpy(x) for x in arrays)).numpy()).any(-1)
+    _assert_same_with_nan(got, _xla(arrays))
+    # jitted, the grouping agrees wherever no score is NaN
+    jitted = _xla(arrays, jit=True)
+    _assert_same_with_nan((got[0][no_nan], got[1][no_nan]),
+                          (jitted[0][no_nan], jitted[1][no_nan]))
+
+
+def test_plain_matches_xla_grouping_in_decode_order():
+    arrays = chip_smoke.affinity_inputs(2, 3000, 96, seed=9, decode_order=True)
+    flat = arrays[0][..., 0] * 1024 + arrays[0][..., 1]
+    assert (np.diff(flat, axis=-1) > 0).all()
+    got, want = _plain(arrays), _xla(arrays)
+    _assert_same_grouping(got, want)
+    np.testing.assert_array_equal(got[0][want[1] == 0], 0)
+
+
+def _packed_key_argmax(scored):
+    """The kernel's first-max argmax, numpy: the max over d of (score bits
+    << 32 | 0xffffffff - d), NaN as 0x7fc00000, started at (0, d = 0)."""
+    bits = np.where(np.isnan(scored), np.uint32(0x7fc00000), scored.view(np.uint32))
+    d = np.arange(scored.shape[-1], dtype=np.uint64)
+    keys = (bits.astype(np.uint64) << np.uint64(32)) | (np.uint64(0xffffffff) - d)
+    top = np.maximum(keys.max(axis=-1), np.uint64(0xffffffff))
+    assign = (np.uint64(0xffffffff) - (top & np.uint64(0xffffffff))).astype(np.int32)
+    best = (top >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    return assign, best
+
+
+def test_packed_key_argmax_matches_jnp_argmax():
+    """Rows of scores >= 0 or NaN, with +inf, exact ties, all zeros and
+    several NaNs: the packed key gives jnp.argmax and jnp.max."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(11)
+    scored = rng.choice(np.array([0.0, 0.25, 0.5, 1.0, np.inf, np.nan], np.float32),
+                        size=(400, 7), p=[0.4, 0.15, 0.15, 0.1, 0.1, 0.1])
+    scored[:20] = 0.0
+    scored[20:40] = rng.uniform(0, 1, (20, 7)).astype(np.float32)
+    assign, best = _packed_key_argmax(scored)
+    np.testing.assert_array_equal(assign, np.asarray(jnp.argmax(jnp.asarray(scored), axis=-1)))
+    np.testing.assert_array_equal(best, np.asarray(jnp.max(jnp.asarray(scored), axis=-1)))
+    assert (assign[:20] == 0).all() and np.isnan(best).any()
+
+
+def _kernel_model(kp_rc, emb, sig, c_emb, boxes, det_valid, warp=32):
+    """The kernel's culling, numpy: an odd keypoint (emb not finite, or sig
+    not in (0, inf)) scored against every center; each other keypoint
+    against the centers of its ``warp`` whose box meets the warp's
+    bounding rectangle (its odd keypoints left out) and the centers whose
+    c_emb is not finite, only where it lies in the box or the center is such
+    a one; the argmax by the packed key."""
+    B, K = kp_rc.shape[:2]
+    assign = np.zeros((B, K), np.int32)
+    best = np.zeros((B, K), np.float32)
+    for b in range(B):
+        y1 = np.where(det_valid[b], boxes[b, :, 1], np.float32(np.nan))
+        x1, y2, x2 = boxes[b, :, 0], boxes[b, :, 3], boxes[b, :, 2]
+        odd_center = ~np.isfinite(c_emb[b]).all(-1)
+        for w0 in range(0, K, warp):
+            rc, e, s = (a[b, w0:w0 + warp] for a in (kp_rc, emb, sig))
+            odd = ~(np.isfinite(e).all(-1) & (s > 0).all(-1) & (s < np.inf).all(-1))
+            placed = ~np.isnan(rc).any(-1) & ~odd
+            rmin, rmax = rc[placed, 0].min(initial=np.inf), rc[placed, 0].max(initial=-np.inf)
+            cmin, cmax = rc[placed, 1].min(initial=np.inf), rc[placed, 1].max(initial=-np.inf)
+            kept = (y1 <= rmax) & (y2 >= rmin) & (x1 <= cmax) & (x2 >= cmin) | odd_center
+            inside = ((rc[:, 0:1] >= y1) & (rc[:, 0:1] <= y2) &
+                      (rc[:, 1:2] >= x1) & (rc[:, 1:2] <= x2))
+            dy, dx = e[:, 0:1] - c_emb[b, :, 0], e[:, 1:2] - c_emb[b, :, 1]
+            score = np.exp(-(dy * dy * s[:, 0:1] + dx * dx * s[:, 1:2])) * inside
+            scored = odd[:, None] | kept & (odd_center | inside)
+            a, t = _packed_key_argmax(np.where(scored, score, np.float32(0)))
+            assign[b, w0:w0 + warp], best[b, w0:w0 + warp] = a, t
+    return assign, best
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_CASES) + 2),
+                         ids=EDGE_IDS + ["random order", "decode order"])
+def test_kernel_model_matches_xla_grouping(case):
+    """Culling skips only pairs that score 0: the model of the kernel's
+    culling gives the XLA grouping op by op, NaN cases included."""
+    if case < len(EDGE_CASES):
+        arrays = EDGE_CASES[case][1]
+    else:
+        arrays = chip_smoke.affinity_inputs(2, 2000, 96, seed=10,
+                                            decode_order=case > len(EDGE_CASES))
+    with np.errstate(all="ignore"):
+        _assert_same_with_nan(_kernel_model(*arrays), _xla(arrays))
 
 
 def test_plain_matches_pallas_kernel_interpret():
@@ -196,3 +321,32 @@ def test_kernel_matches_plain_on_card(cuda_device):
     assert bool((a[~nonzero] == 0).all())
     edge = [torch.from_numpy(x).to(cuda_device) for x in _edge_case_inputs()]
     assert affinity.affinity_assign(*edge)[0].cpu().tolist() == [[0, 0, 1, 0]]
+    shifted = list(arrays)                # the keypoint pairs are read 8 bytes at a time
+    shifted[0] = torch.empty(arrays[0].numel() + 1, device=cuda_device)[1:].view_as(arrays[0])
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        affinity.affinity_assign(*shifted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(EDGE_CASES)), ids=EDGE_IDS)
+def test_kernel_matches_cpu_twin_on_edge_cases_on_card(cuda_device, case):
+    """NaN, inf and underflow in the scores, D = 1 and 1024, K not a multiple
+    of the block, no box near the keypoints: the kernel against the twin
+    computed on the CPU (assign equal, best to rtol 1e-6 and NaN where the
+    twin's is)."""
+    arrays = EDGE_CASES[case][1]
+    inputs = [torch.from_numpy(x).to(cuda_device) for x in arrays]
+    a, b = affinity.affinity_assign(*inputs)
+    torch.cuda.synchronize()
+    with np.errstate(all="ignore"):
+        want = _plain(arrays)
+    _assert_same_with_nan((a.cpu().numpy(), b.cpu().numpy()), want)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_in_decode_order_on_card(cuda_device):
+    arrays = chip_smoke.affinity_inputs(8, 20000, 96, seed=12, decode_order=True)
+    inputs = [torch.from_numpy(x).to(cuda_device) for x in arrays]
+    a, b = affinity.affinity_assign(*inputs)
+    cmp = chip_smoke.against_cpu_twin(a, b, inputs)
+    assert cmp["bad"] == 0 and cmp["best_ok"], cmp
