@@ -58,7 +58,24 @@ Phases, one result line each; any failure raises and exits non-zero:
      and 4, each with and without remat; batch 4 with ae_window (256, 512)),
      with finite losses and each configuration's launch counts: K6, K3, K4
      and K5 once a step and K2 never on the count-map route; K5 alone on
-     the windowed one.
+     the windowed one;
+ 12. the data-parallel slice through ``tools/multichip.py``'s ranks, each
+     spawned (``parallel.multihost.spawn``, a rendezvous file, a timeout),
+     each loading the kernels phases 2 and 6 built: (a) on every card over
+     NCCL, EfficientSeg-B3 bf16 at 512x1024, global batch 8, M=96, P=1024,
+     Adam 2e-5, 1 warm-up and 3 timed steps with finite global stats, K2-K5
+     launched once a step on every rank, each rank's ms/step and peak memory
+     beside phase 8's; (b) two ranks on the one card over gloo (CUDA
+     tensors), EfficientSeg-B0 f32 at 128x512, global batch 4, drop-connect
+     0, at P=64 (K2) and P=60 (the count map and K6), each against a 1-rank
+     step on the card on the same inputs: the six global stats to rtol 1e-5,
+     each loss term's head gradient to rel-L2 1e-4, every gradient element
+     to 1e-2 of max|g| and the whole gradient to rel-L2 2e-2
+     (``multichip.py`` says why; the float32 floor of both, the 1-rank step
+     on the batch reversed, is printed beside them), the running statistics to rtol 1e-5
+     and bitwise equal on both ranks; (c) on the same two ranks, a trainer
+     saved by rank 0 and restored into a fresh trainer on both, whose next
+     step's stats equal the continuing trainer's to rtol 1e-6.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -68,8 +85,8 @@ PyTorch's included.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after: K1's from the serving slice, K2-K5's from the training slice, K6's
-from the full-resolution slice. The lines before the last are a JSON
-record of the kernels and the
+from the full-resolution slice; phase 12's ranks count their own. The
+lines before the last are a JSON record of the kernels and the
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises before
 printing anything.
@@ -79,7 +96,9 @@ from __future__ import annotations
 
 import gc
 import json
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -91,8 +110,9 @@ from instance_segmentation_torch.models import EfficientSegConfig, generate_anch
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
 from instance_segmentation_torch.ops.targets import generate_targets
+from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
-from instance_segmentation_torch.tools import fullres_demo
+from instance_segmentation_torch.tools import fullres_demo, multichip
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
 import kernel_timing
@@ -703,7 +723,8 @@ TRAIN_KERNELS = {"rasterize_cnt_r2": rasterize, "rasterize_nmap": rasterize,
 
 def phase_train_slice(dev: torch.device, smi: str) -> dict:
     """B3 512x1024 bf16 training, batch 8: 1 warm-up step, 5 timed steps.
-    Returns the K2-K5 launch counts of the timed steps."""
+    Returns the K2-K5 launch counts of the timed steps and the median
+    ms/step."""
     b, m, p, h, w = TRAIN_SHAPE
     cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
     trainer = Trainer(cfg, torch.Generator().manual_seed(0), (h, w), max_points=p, device=dev)
@@ -732,7 +753,7 @@ def phase_train_slice(dev: torch.device, smi: str) -> dict:
           f"{[round(t, 3) for t in times]} (median {med:.3f}), img/s {1e3 * b / med:.2f}; "
           f"peak device memory {peak} B ({peak / 2**30:.2f} GiB); launches {counts}; [{smi}]",
           flush=True)
-    return counts
+    return counts, med
 
 
 def phase_train_parity(dev: torch.device) -> None:
@@ -913,6 +934,64 @@ def phase_fullres_slice(smi: str) -> int:
     return k6
 
 
+DP_TIMEOUT = 300.0                       # seconds for each spawn
+
+
+def spawn_ranks(world: int, argv, one_card: bool = False) -> list:
+    """``multichip.spawned`` on ``world`` ranks; their results, rank by rank."""
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        out = Path(tmp)
+        multihost.spawn(multichip.spawned, world,
+                        (f"file://{out}/rendezvous", list(argv), str(out), one_card),
+                        timeout=DP_TIMEOUT)
+        return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def phase_data_parallel(smi: str, train_ms: float) -> None:
+    """(a) B3 full width on every card over NCCL; (b) the 2-rank step on one
+    card over gloo against the 1-rank step; (c) save, restore, step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    results = spawn_ranks(world, ["--device-type", "cuda", "--backend", "nccl"])
+    want = {name: 0 if name == "minr2_from_cnt" else multichip.TRAIN_ITERS
+            for name in multichip.COUNTERS}
+    for r in results:
+        check(all(np.isfinite(v) for v in r["stats"].values()),
+              f"rank {r['rank']}: a loss is not finite: {r['stats']}")
+        check(r["launches"] == want, f"rank {r['rank']}: launches {r['launches']}, want {want}")
+        check(r["stats"] == results[0]["stats"], f"rank {r['rank']}: stats differ from rank 0's")
+        med = float(np.median(r["ms_per_step"]))
+        print(f"[12a] B3 512x1024 bf16 train, global batch {r['global_batch']} on {r['world']} "
+              f"rank(s) over NCCL, rank {r['rank']} ({r['device']}): ms/step "
+              f"{[round(t, 3) for t in r['ms_per_step']]} (median {med:.3f}; phase 8's one-card "
+              f"b8 step {train_ms:.3f}), peak device memory {r['peak_bytes']} B "
+              f"({r['peak_bytes'] / 2**30:.2f} GiB); launches {r['launches']}; global stats "
+              + ", ".join(f"{k} {v:.6g}" for k, v in r["stats"].items()) + f"; [{smi}]",
+              flush=True)
+    results = spawn_ranks(2, ["--check", "--device-type", "cuda", "--backend", "gloo"],
+                          one_card=True)
+    for r in results:
+        check(not r["failures"], f"rank {r['rank']}: {r['failures']}")
+        for c in r["cases"]:
+            print(f"[12b] rank {r['rank']}/2 on one card over gloo, B0 128x512 f32 global batch "
+                  f"{multichip.CHECK_BATCH} at P={c['p']}, against the 1-rank step on the card: "
+                  f"stats max rel {c['stat_rel']:.3g} (<= {multichip.STAT_RTOL}), head gradients "
+                  f"rel-L2 {c['head_rel_l2']:.3g} (<= {multichip.HEAD_REL_L2}), largest gradient "
+                  f"element difference {c['grad_leaf_rel']:.3g} of max|g| "
+                  f"(<= {multichip.GRAD_LEAF_TOL}), whole gradient "
+                  f"rel-L2 {c['grad_rel_l2']:.3g} (<= {multichip.GRAD_REL_L2}); float32 floor "
+                  f"(1-rank step, images reversed) {c['floor_leaf_rel']:.3g} of max|g|, "
+                  f"rel-L2 {c['floor_rel_l2']:.3g}; BN running stats "
+                  f"max|diff| {c['bn_max_abs']:.3g} (rtol 1e-5), equal on every rank "
+                  f"{c['bn_equal_across_ranks']}; [{smi}]", flush=True)
+        resume = r["resume"]
+        print(f"[12c] rank {r['rank']}/2: saved by rank 0 as {resume['file']}, restored "
+              f"(start epoch {resume['start_epoch']}, best_ap {resume['best_ap']}); next step's "
+              f"stats max rel {resume['resume_rel']:.3g} from the continuing trainer's "
+              f"(<= {multichip.RESUME_RTOL})", flush=True)
+
+
 def main() -> None:
     dev = require_cuda()
     kernel_timing.hook(build)
@@ -944,12 +1023,13 @@ def main() -> None:
         for line in build.ptxas_usage(kernel):
             print(f"[6] ptxas {kernel}.cu {line}", flush=True)
     records = phase_train_kernels(dev)
-    counts = phase_train_slice(dev, smi)
+    counts, train_ms = phase_train_slice(dev, smi)
     for r in records:
         r["launches"] = counts[r["name"]]
     phase_train_parity(dev)
     k6_record = phase_minr2(dev)
     k6_record["launches"] = phase_fullres_slice(smi)
+    phase_data_parallel(smi, train_ms)
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))
     print(smi)

@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from instance_segmentation_torch.kernels import ae_terms as ae_kernels
 from instance_segmentation_torch.kernels import minr2, rasterize
@@ -148,31 +149,39 @@ def det_focal_loss(classification: torch.Tensor, regression: torch.Tensor,
 
 # ---- kp focal ------------------------------------------------------------------
 
-def kp_focal_loss_from_union(kp_logits: torch.Tensor, union: torch.Tensor) -> torch.Tensor:
-    """CornerNet-style focal over the whole batch, the binary target being the
-    rasterizer's union map [B, H, W]. kp_logits [B, H, W] (or [B, H, W, 1])."""
+def kp_focal_from_sums(pos: torch.Tensor, neg: torch.Tensor,
+                       num_pos: torch.Tensor) -> torch.Tensor:
+    """The kp focal loss from its three batch sums: the positive and negative
+    terms and the positive count."""
+    return torch.where(num_pos == 0, -neg, -(pos + neg) / num_pos.clamp_min(1.0))
+
+
+def kp_focal_sums_from_union(kp_logits: torch.Tensor, union: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pos, neg, num_pos) of the CornerNet-style focal loss over the whole
+    batch, the binary target being the rasterizer's union map [B, H, W].
+    kp_logits [B, H, W] (or [B, H, W, 1])."""
     kp = kp_logits if kp_logits.dim() == 3 else kp_logits[..., 0]
     pred = torch.sigmoid(kp).clamp(_EPS, 1.0 - _EPS)
     u = union.to(torch.float32)
     pos = (torch.log(pred) * (1.0 - pred) ** 2 * u).sum()
     neg = (torch.log(1.0 - pred) * pred ** 2 * (1.0 - u)).sum()
-    num_pos = u.sum()
-    return torch.where(num_pos == 0, -neg, -(pos + neg) / num_pos.clamp_min(1.0))
+    return pos, neg, u.sum()
 
 
-def kp_focal_loss_from_cnt(kp_logits: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
-    """The kp focal loss on the count-map route: the target is the union over
+def kp_focal_sums_from_cnt(kp_logits: torch.Tensor, cnt: torch.Tensor):
+    """The kp focal sums on the count-map route: the target is the union over
     instances of cnt != 0 (cnt u16 [B, M, H, W], read through its int16
     view)."""
-    return kp_focal_loss_from_union(kp_logits, (cnt.view(torch.int16) != 0).any(dim=1))
+    return kp_focal_sums_from_union(kp_logits, (cnt.view(torch.int16) != 0).any(dim=1))
 
 
-def kp_focal_loss_from_points(kp_logits: torch.Tensor, targets: Targets) -> torch.Tensor:
-    """The kp focal loss from the point list, as the reference computes it
+def kp_focal_sums_from_points(kp_logits: torch.Tensor, targets: Targets):
+    """The kp focal sums from the point list, as the reference computes them
     when no count map exists (the windowed AE route): the binary target is 1
-    at the deduplicated sample pixels, so the loss is
-    -(pos at those pixels + neg everywhere - neg at those pixels) / n_unique.
-    One sort per image deduplicates the pixels."""
+    at the deduplicated sample pixels, so pos is taken at those pixels, neg
+    everywhere less at those pixels, and num_pos counts them. One sort per
+    image deduplicates the pixels."""
     kp = kp_logits if kp_logits.dim() == 3 else kp_logits[..., 0]
     B, H, W = kp.shape
     hw = H * W
@@ -186,9 +195,19 @@ def kp_focal_loss_from_points(kp_logits: torch.Tensor, targets: Targets) -> torc
     pos = (torch.log(pv) * (1.0 - pv) ** 2 * uf).sum()
     neg_corr = (torch.log(1.0 - pv) * pv ** 2 * uf).sum()
     neg_all = (torch.log(1.0 - pred) * pred ** 2).sum()
-    num_pos = uf.sum()
-    return torch.where(num_pos == 0, -neg_all,
-                       -(pos + neg_all - neg_corr) / num_pos.clamp_min(1.0))
+    return pos, neg_all - neg_corr, uf.sum()
+
+
+def kp_focal_loss_from_union(kp_logits: torch.Tensor, union: torch.Tensor) -> torch.Tensor:
+    return kp_focal_from_sums(*kp_focal_sums_from_union(kp_logits, union))
+
+
+def kp_focal_loss_from_cnt(kp_logits: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    return kp_focal_from_sums(*kp_focal_sums_from_cnt(kp_logits, cnt))
+
+
+def kp_focal_loss_from_points(kp_logits: torch.Tensor, targets: Targets) -> torch.Tensor:
+    return kp_focal_from_sums(*kp_focal_sums_from_points(kp_logits, targets))
 
 
 def focal_heatmap_loss(pred: torch.Tensor, gt: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
@@ -382,28 +401,62 @@ def tangent_loss(tan: Tuple[torch.Tensor, torch.Tensor], targets: Targets,
 # ---- composition -------------------------------------------------------------------
 
 def compose_loss(outputs, targets: Targets, anchors: torch.Tensor,
-                 cfg: LossConfig = LossConfig()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 cfg: LossConfig = LossConfig(), group=None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs = (kp, ae, tan, regression, classification) from EfficientSeg in
     training mode (planar heads). Returns (total, the six stats). The kp and
-    AE losses take the route of the module docstring."""
+    AE losses take the route of the module docstring.
+
+    With a process group (data parallelism), this rank's batch is its slice
+    of a global batch of equal slices: see ``_data_parallel``."""
     kp, ae, tan, regression, classification = outputs
     H, W = kp.shape[1], kp.shape[2]
     xym = coordinate_grid(H, W, kp.device)
     cls_l, reg_l = det_focal_loss(classification, regression, anchors, targets.det_ann, cfg)
     if cfg.ae_window is not None:
-        kp_l = kp_focal_loss_from_points(kp, targets)
+        kp_sums = kp_focal_sums_from_points(kp, targets)
         ae_l = ae_loss_windowed(ae, targets, xym, cfg)
     else:
         if rasterizer_supported(H, W, targets.points.shape[2]):
             cnt, r2, union = rasterize.rasterize_cnt_r2(targets.points, targets.pt_valid, H, W)
-            kp_l = kp_focal_loss_from_union(kp, union)
+            kp_sums = kp_focal_sums_from_union(kp, union)
         else:
             cnt = ae_sample_count(targets, H, W)
             r2 = minr2.minr2_from_cnt(cnt, targets.pt_valid.any(dim=2))
-            kp_l = kp_focal_loss_from_cnt(kp, cnt)
+            kp_sums = kp_focal_sums_from_cnt(kp, cnt)
         ae_l = ae_loss(ae, targets, xym, cnt, r2, cfg)
     tan_l = tangent_loss(tan, targets, cfg)
+    if group is not None:
+        return _data_parallel(cls_l, reg_l, kp_sums, ae_l, tan_l, group)
+    kp_l = kp_focal_from_sums(*kp_sums)
     total = cls_l + reg_l + kp_l + ae_l + tan_l
     stats = {"cls_loss": cls_l, "wh_loss": reg_l, "kp_loss": kp_l,
              "ae_loss": ae_l, "tan_loss": tan_l, "total_loss": total}
+    return total, stats
+
+
+def _data_parallel(cls_l, reg_l, kp_sums, ae_l, tan_l, group
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(this rank's share of the loss, the six global stats) for a rank of
+    ``group``, whose gradients DDP averages over the group's ``n`` ranks.
+
+    The det, AE and tangent losses are means over images, so the mean of the
+    ranks' losses is the global one. The kp focal loss is not: its sums run
+    over the whole batch and are divided once. So its three sums are summed
+    over the ranks (one all-reduce, with the other four terms for the
+    stats), the global positive count decides both the normaliser and the
+    ``num_pos == 0`` branch, and this rank's share of the kp loss is ``n``
+    times its own sums over that normaliser. The stats are the global
+    losses, equal on every rank."""
+    n = dist.get_world_size(group)
+    pos, neg, num_pos = kp_sums
+    local = torch.stack([cls_l, reg_l, ae_l, tan_l, pos, neg, num_pos]).detach()
+    dist.all_reduce(local, group=group)
+    cls_g, reg_g, ae_g, tan_g = (local[:4] / n).unbind()
+    pos_g, neg_g, num_pos_g = local[4:].unbind()
+    kp_g = kp_focal_from_sums(pos_g, neg_g, num_pos_g)
+    kp_share = n * torch.where(num_pos_g == 0, -neg, -(pos + neg) / num_pos_g.clamp_min(1.0))
+    total = cls_l + reg_l + kp_share + ae_l + tan_l
+    stats = {"cls_loss": cls_g, "wh_loss": reg_g, "kp_loss": kp_g, "ae_loss": ae_g,
+             "tan_loss": tan_g, "total_loss": cls_g + reg_g + kp_g + ae_g + tan_g}
     return total, stats

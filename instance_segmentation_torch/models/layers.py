@@ -15,7 +15,10 @@ and cast to the activation dtype before they are applied.
 
 Batch norm follows ``nn.Module.train()``/``.eval()``: batch statistics (the
 biased variance) and a flax-style running-average update in training, the
-running statistics in eval.
+running statistics in eval. Given a process group (``set_batchnorm_group``),
+its training statistics are those of the global batch over the group's ranks,
+as the reference's batch statistics are global reductions over a batch
+sharded across devices.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -111,6 +115,24 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of ``group``. Every rank's loss depends
+    on the sum, so the backward sums the cotangent over the ranks too."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(nn.Module):
     """Batch norm as ``x * scale_eff + shift``, the per-channel coefficients
     formed in float32 and cast to the activation dtype.
@@ -121,24 +143,42 @@ class BatchNorm(nn.Module):
     as ``m * running + (1 - m) * batch``. ``torch.nn.BatchNorm2d`` keeps the
     unbiased variance and the other momentum convention, so it is not used.
     Autograd gives the backward. Like ``EfficientSeg``, it starts in eval
-    mode: training is asked for with ``.train()``."""
+    mode: training is asked for with ``.train()``.
+
+    With ``process_group`` set (``set_batchnorm_group``), the float32
+    per-channel sums of x and x^2 and the element count are summed over the
+    group's ranks (differentiably) before the mean and variance are formed:
+    every rank gets the statistics of the global batch, and so the same
+    running statistics. ``torch.nn.SyncBatchNorm`` keeps the conventions of
+    ``BatchNorm2d`` and is not used either."""
 
     def __init__(self, channels: int, eps: float = BN_EPS_DET,
                  momentum: float = BN_MOMENTUM_DET):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.eval()
 
+    def _batch_moments(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, E[x^2]) per channel of float32 ``xf``, over the global batch
+        when a process group is set."""
+        if self.process_group is None:
+            return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))
+        c = xf.shape[1]
+        sums = torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                          xf.new_full((1,), xf.numel() // c)])
+        sums = _AllReduceSum.apply(sums, self.process_group)
+        return sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+            mean, mean_sq = self._batch_moments(x.float())
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -149,6 +189,16 @@ class BatchNorm(nn.Module):
         shift = self.bias - mean * scale
         return (x * scale.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])
+
+
+def set_batchnorm_group(module: nn.Module, group) -> int:
+    """Give every ``BatchNorm`` in ``module`` the process group whose ranks'
+    batches its training statistics cover (None: this rank's batch alone).
+    Returns the number of batch norms set."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.process_group = group
+    return len(norms)
 
 
 class SeparableConv(nn.Module):

@@ -1,7 +1,7 @@
 """The port's training step (instance_segmentation_torch/training/train_step.py)
 and its parts against the JAX package on seeded numpy inputs, float32:
 train-mode batch norm and its running statistics against flax, drop-connect,
-the optimizer against ``make_optimizer("Adam", 2e-5)``, the weight bridge
+the optimizer menu (Adam, SGD, Adadelta) against ``make_optimizer``, the weight bridge
 both ways, and one whole step (EfficientSeg-B0, 128x512, B=2, M=8, P=64)
 against the loss function of ``make_train_step`` (built with
 ``backbone_s2d=False, unet_s2d=False``; the Pallas kernels in interpret
@@ -106,7 +106,12 @@ def test_drop_connect_rates_and_modes():
     assert torch.equal(net(x)[-1], net(x)[-1])
 
 
-def test_adam_matches_optax_over_three_updates():
+@pytest.mark.parametrize("opt_type, lr", [("Adam", 2e-5), ("SGD", 2e-5), ("Adadelta", 1.0)])
+def test_adam_matches_optax_over_three_updates(opt_type, lr):
+    """The port's optimizer menu against the reference's ``make_optimizer``:
+    three updates to atol 1e-7 (Adadelta at lr 1, where its steps of ~3e-3
+    show; at 2e-5 they would round away in float32); any other name raises
+    ValueError in both."""
     import optax
     from instance_segmentation_tpu.parallel.train_step import make_optimizer as j_make
     rng = np.random.default_rng(4)
@@ -114,11 +119,11 @@ def test_adam_matches_optax_over_three_updates():
     params = {k: rng.normal(0, 1, s).astype(np.float32) for k, s in shapes.items()}
     grads = [{k: rng.normal(0, 1e-2, s).astype(np.float32) for k, s in shapes.items()}
              for _ in range(3)]
-    tx = j_make("Adam", 2e-5)
+    tx = j_make(opt_type, lr)
     p_j = jax.tree.map(jnp.asarray, params)
     state = tx.init(p_j)
     tensors = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
-    opt = make_optimizer(list(tensors.values()), "Adam", 2e-5)
+    opt = make_optimizer(list(tensors.values()), opt_type, lr)
     for g in grads:
         updates, state = tx.update(jax.tree.map(jnp.asarray, g), state, p_j)
         p_j = optax.apply_updates(p_j, updates)
@@ -128,8 +133,10 @@ def test_adam_matches_optax_over_three_updates():
     for k, t in tensors.items():
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(p_j[k]), rtol=0, atol=1e-7)
         assert not np.array_equal(t.detach().numpy(), params[k])
-    with pytest.raises(NotImplementedError):
-        make_optimizer(list(tensors.values()), "SGD")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        j_make("RMSprop")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(list(tensors.values()), "RMSprop")
 
 
 # ---- the whole step --------------------------------------------------------------------
