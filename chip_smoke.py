@@ -75,7 +75,26 @@ Phases, one result line each; any failure raises and exits non-zero:
      on the batch reversed, is printed beside them), the running statistics to rtol 1e-5
      and bitwise equal on both ranks; (c) on the same two ranks, a trainer
      saved by rank 0 and restored into a fresh trainer on both, whose next
-     step's stats equal the continuing trainer's to rtol 1e-6.
+     step's stats equal the continuing trainer's to rtol 1e-6;
+ 13. the evaluation slice through the entry points ``python -m
+     instance_segmentation_torch.evaluate`` and ``.test`` (called
+     in-process): a synthetic Cityscapes tree of 8 val frames at 1024x2048
+     (``tools/make_synthetic_cityscapes.py`` of the port, rows filtered as
+     libpng filters them, zlib level 6); the PNG row unfilter built here
+     (``csrc/png_unfilter.c``, host code) held bit for bit against its numpy
+     twin on streams of all five filter types and on the frames; host ms
+     per frame for PNG decode and resize; the native
+     Cityscapes AP of the ground-truth polygons (must be 1); the evaluate
+     CLI at B3 bf16 512x1024 (the default eval config) at batch 2 and 8 on
+     seeded weights (random batch norms, as the CPU tests') whose class bias
+     is raised by 0.5, saved as a checkpoint: ms per
+     batch of forward and decode (synchronised), the sweep's img/s, seconds
+     of AP scoring, detections (at least one) and K1's launches (one a
+     batch), and K1 held and timed as in phase 3 on the inputs it got in
+     the first batch of each timed run (B=2 and B=8, K=20000, D=96);
+     ``iou_matrix`` on the card against the CPU (1e-6); the test CLI
+     writing one overlay per frame, each decoding to the frame's shape, and
+     K1 held on its first batch's inputs.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -85,7 +104,8 @@ PyTorch's included.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after: K1's from the serving slice, K2-K5's from the training slice, K6's
-from the full-resolution slice; phase 12's ranks count their own. The
+from the full-resolution slice; phase 12's ranks count their own; phase 13
+counts K1 over each CLI run. The
 lines before the last are a JSON record of the kernels and the
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises before
@@ -94,8 +114,10 @@ printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import tempfile
 import time
 from pathlib import Path
@@ -103,18 +125,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from instance_segmentation_torch import evaluate as evaluate_cli
+from instance_segmentation_torch import test as test_cli
+from instance_segmentation_torch.configs import Config, load_trans_config
+from instance_segmentation_torch.data import get_dataloader
+from instance_segmentation_torch.data.cityscapes import CityscapesDataset, parse_eval_label_json
 from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
+from instance_segmentation_torch.evaluation import device_iou, eval_loop
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSegConfig, generate_anchors
+from instance_segmentation_torch.models.layers import BatchNorm
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
 from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
-from instance_segmentation_torch.tools import fullres_demo, multichip
+from instance_segmentation_torch.tools import fullres_demo, make_synthetic_cityscapes, multichip
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
+from instance_segmentation_torch.transforms import CommonTransforms
+from instance_segmentation_torch.utils import png
+from instance_segmentation_torch.utils.logger import Logger
 import kernel_timing
 
 AFFINITY_SHAPE = (8, 20000, 96)          # B, K (kp_th), D (max_dets)
@@ -126,6 +158,9 @@ FULLRES_ITERS = 3
 HBM_BYTES_PER_MS = 3.35e9                # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9                    # H100 SXM: 67 TFLOP/s float32 (no tensor cores)
 KERNELS = ("affinity", "rasterize", "ae_terms")
+HOST_HELPERS = ("png_unfilter",)          # csrc/png_unfilter.c: host code, not a kernel
+EVAL_IMAGES, EVAL_HW, EVAL_BATCHES = 8, (1024, 2048), (2, 8)
+EVAL_INPUT, EVAL_COMPOUND = (512, 1024), 3   # eval_cfg.yaml's input at scale 2, B3
 SCENE_SQUARES = (((20, 30), (60, 70), 0), ((80, 100), (110, 150), 1))
 SCENE_DECODE = DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512)
 
@@ -450,6 +485,24 @@ def phase_decode(dev: torch.device) -> None:
           f"fields, floats max|diff| {worst:.3g} (tol 1e-5)", flush=True)
 
 
+@contextlib.contextmanager
+def first_k1_inputs():
+    """While open, the decode's K1 calls go through a wrapper that keeps a
+    copy of the first call's inputs in the list it yields (the wrapper
+    launches K1 as the decode would, and counts as it)."""
+    kept = []
+
+    def capture(*args):
+        if not kept:
+            kept.extend(a.clone() for a in args)
+        return affinity.affinity_assign(*args)
+    decode.affinity_assign = capture
+    try:
+        yield kept
+    finally:
+        decode.affinity_assign = affinity.affinity_assign
+
+
 def phase_slice(dev: torch.device, smi: str):
     """B3 512x1024 bf16 Predictor: 3 requests at b1 and 3 at b8. Returns the
     number of K1 launches made by those requests and the inputs K1 got in
@@ -459,17 +512,9 @@ def phase_slice(dev: torch.device, smi: str):
     pred = Predictor(cfg, dcfg, torch.Generator().manual_seed(0), dev,
                      orig_hw=(1024, 2048), scale=2.0)
     frames = np.random.default_rng(0).integers(0, 256, (8, 512, 1024, 3), dtype=np.uint8)
-    served = []                           # the first b8 call's grouping inputs
-
-    def capture(*args):
-        served.extend(a.clone() for a in args)
-        return affinity.affinity_assign(*args)
     pred.predict(frames[:1])              # warm-up, not counted
-    decode.affinity_assign = capture
-    try:
+    with first_k1_inputs() as served:     # the first b8 call's grouping inputs
         pred.predict(frames)
-    finally:
-        decode.affinity_assign = affinity.affinity_assign
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -992,6 +1037,264 @@ def phase_data_parallel(smi: str, train_ms: float) -> None:
               f"(<= {multichip.RESUME_RTOL})", flush=True)
 
 
+def yaml_text(tree: dict, indent: str = "") -> str:
+    """A nested dict of scalars and lists as YAML the port's reader takes
+    (strings single-quoted, None empty)."""
+    def scalar(v):
+        if v is None:
+            return ""
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, str):
+            return "'" + v.replace("'", "''") + "'"
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(scalar(x) for x in v) + "]"
+        return repr(v)
+    out = ""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += f"{indent}{k}:\n" + yaml_text(v, indent + "  ")
+        else:
+            out += f"{indent}{k}: {scalar(v)}".rstrip() + "\n"
+    return out
+
+
+def hold_png_unfilter(root: Path) -> None:
+    """The PNG row unfilter built on this machine (``csrc/png_unfilter.c``)
+    against its numpy twin, bit for bit: streams of every filter type at 1-4
+    bytes a pixel (``png.filter_rows``, no OpenCV), and the synthetic tree's
+    frames."""
+    rng = np.random.default_rng(13)
+    rows = 0
+    for bpp in (1, 2, 3, 4):
+        h, w = 67, 129
+        y, x = np.mgrid[0:h, 0:w * bpp]
+        img = ((x * 3 + y * 5) % 256 + rng.integers(0, 16, (h, w * bpp))).astype(np.uint8)
+        types = rng.integers(0, 5, h)
+        types[:5] = np.arange(5)
+        stream = png.filter_rows(img, bpp, types).reshape(-1)
+        native = png.unfilter_native(stream, h, w * bpp, bpp)
+        check(np.array_equal(native, png.unfilter_numpy(stream, h, w * bpp, bpp)),
+              f"PNG unfilter: C helper differs from the numpy twin at {bpp} B a pixel")
+        check(np.array_equal(native, img), f"PNG unfilter: not the encoded image at {bpp} B")
+        rows += h
+    frames = sorted(root.rglob("*_leftImg8bit.png"))[:2]
+    types = np.zeros(5, np.int64)
+    for f in frames:
+        stream, h, rowbytes, bpp = png.inflate(str(f))[:4]
+        types += np.bincount(stream.reshape(h, -1)[:, 0], minlength=5)
+        check(np.array_equal(png.unfilter_native(stream, h, rowbytes, bpp),
+                             png.unfilter_numpy(stream, h, rowbytes, bpp)),
+              f"PNG unfilter: C helper differs from the numpy twin on {f.name}")
+    print(f"[13] PNG row unfilter (csrc/png_unfilter.c, host C) == numpy twin bit for bit on "
+          f"{rows} rows of all five filter types at 1-4 B a pixel and on {len(frames)} "
+          f"{EVAL_HW[0]}x{EVAL_HW[1]} frames (rows by filter type 0-4: {types.tolist()})",
+          flush=True)
+
+
+def timed(fn, store: list):
+    """``fn`` with the time of each call, the card synchronised before and
+    after it, appended to ``store``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def gt_ap(root: Path, out: Path) -> dict:
+    """``evaluate_from_json`` on detections made of the ground-truth polygons
+    of every image (score 1): AP and AP50 must be 1."""
+    dets, infos = [], []
+    for label in sorted((root / "gtFine" / "val").rglob("*_gtFine_polygons.json")):
+        cls_ids, polys, groups, _ = parse_eval_label_json(json.loads(label.read_text()))
+        dets.append([[c, 1.0, np.asarray(p, np.float32).mean(0).tolist(),
+                      np.asarray(p, np.float32).tolist()]
+                     for c, p, g in zip(cls_ids, polys, groups) if not g])
+        img = str(label).replace("gtFine", "leftImg8bit", 1).replace(
+            "_gtFine_polygons.json", "_leftImg8bit.png")
+        infos.append([img, list(EVAL_HW)])
+    out.mkdir()
+    (out / "0_dets.json").write_text(json.dumps(dets))
+    (out / "0_infos.json").write_text(json.dumps(infos))
+    return eval_loop.evaluate_from_json(Config({"eval_dir": str(root)}), 0, str(out),
+                                        "cityscapes", Logger(), 8)
+
+
+@torch.no_grad()
+def eval_weights(model: torch.nn.Module, seed: int) -> None:
+    """Seeded weights that decode instances, as the CPU tests' weights do
+    (``tests/test_torch_model.random_flax_variables``): batch-norm scale and
+    variance ~ U(0.5, 1.5), bias and mean ~ N(0, 0.1) over ``init_random``'s
+    convolutions (whose identity batch norms decode no object at 512x1024),
+    and the class logits' bias raised by 0.5."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            for t, draw in ((m.weight, "u"), (m.bias, "n"), (m.running_mean, "n"),
+                            (m.running_var, "u")):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g) if draw == "u"
+                        else 0.1 * torch.randn(t.shape, generator=g))
+    model.classifier.header.pointwise_conv.conv.bias.add_(0.5)
+
+
+def phase_eval_slice(dev: torch.device, smi: str) -> None:
+    """The evaluation slice through the port's entry points: a synthetic
+    Cityscapes tree of 8 val frames at 1024x2048, the ``evaluate`` CLI at B3
+    bf16 512x1024 (the default eval config) at batch 2 and 8 on
+    ``eval_weights``, then the ``test`` CLI."""
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        base = Path(tmp)
+        root = base / "cityscapes"
+        t0 = time.perf_counter()
+        make_synthetic_cityscapes.generate(str(root), splits=(("val", EVAL_IMAGES),),
+                                           h=EVAL_HW[0], w=EVAL_HW[1], seed=0, instances=(2, 6))
+        print(f"[13] synthetic Cityscapes tree: {EVAL_IMAGES} val frames at {EVAL_HW[0]}x"
+              f"{EVAL_HW[1]}, 2-6 instances each, written in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        hold_png_unfilter(root)
+
+        dataset = CityscapesDataset(str(root), CommonTransforms(load_trans_config(), "val"),
+                                    subset="val")
+        host_ms = []
+        for i in range(len(dataset)):
+            t0 = time.perf_counter()
+            dataset[i]
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+        inflated = png.inflate(dataset.filenames[0])[:4]
+        t0 = time.perf_counter()
+        png.unfilter_numpy(*inflated)
+        twin_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"[13] host PNG decode (C unfilter) + 2x resize + labels: ms/image "
+              f"{[round(t, 2) for t in host_ms]} (median {np.median(host_ms):.2f}); the numpy "
+              f"unfilter twin alone {twin_ms:.1f} ms/image", flush=True)
+
+        gt = gt_ap(root, base / "gt_dets")
+        check(abs(gt["AP"] - 1.0) <= 1e-12 and gt["AP50"] == 1.0,
+              f"AP of the ground-truth polygons: {gt['AP']}, AP50 {gt['AP50']}")
+        print(f"[13] evaluate_from_json on the ground-truth polygons: AP {gt['AP']!r} AP50 "
+              f"{gt['AP50']!r} (want 1 within 1e-12) over classes {sorted(gt['classes'])}",
+              flush=True)
+
+        weights = base / "weights"
+        weights.mkdir()
+        cfg = {"seed": 1, "compound_coef": EVAL_COMPOUND}
+        model = evaluate_cli.seeded_model(Config(cfg), 8, torch.device("cpu"))
+        eval_weights(model, seed=1)
+        # saved as before epoch 0 (epoch -1), so that a restore starts at
+        # epoch 0 and the sweep writes 0_dets.json
+        ckpt = weights / "efficient_weights_00000000.pth"
+        torch.save({"model": model.state_dict(), "epoch": -1, "best_ap": 0.0}, ckpt)
+        del model
+
+        real = {name: getattr(eval_loop, name) for name in
+                ("forward_and_decode", "eval_outputs", "evaluate_from_json")}
+        for batch in EVAL_BATCHES:
+            for run in ("warm-up", "timed"):     # the warm-up pays the first calls' set-up
+                out = base / f"eval_b{batch}_{run}"
+                eval_cfg = {"data": {"eval_dir": str(root), "save_dir": str(out),
+                                     "dataset": "cityscapes", "batch_size": batch,
+                                     "input_size": list(EVAL_INPUT), "num_classes": -1,
+                                     "subset": "val"},
+                            **cfg, "weights_path": str(ckpt), "weights_dir": None,
+                            "decode_cfg_path": None, "trans_cfg_path": None,
+                            "tpu": {"compute_dtype": "bfloat16",
+                                    "input_size": list(EVAL_INPUT)}}
+                (base / f"eval_b{batch}_{run}.yaml").write_text(yaml_text(eval_cfg))
+            evaluate_cli.main(["--cfg_path", str(base / f"eval_b{batch}_warm-up.yaml")])
+            times = {name: [] for name in real}
+            for name, fn in real.items():
+                setattr(eval_loop, name, timed(fn, times[name]))
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats(dev)
+            affinity.launches = 0
+            try:
+                with first_k1_inputs() as grouped:
+                    t0 = time.perf_counter()
+                    evaluate_cli.main(["--cfg_path", str(base / f"eval_b{batch}_timed.yaml")])
+                    total = time.perf_counter() - t0
+            finally:
+                for name, fn in real.items():
+                    setattr(eval_loop, name, fn)
+            launches = affinity.launches
+            batches = math.ceil(EVAL_IMAGES / batch)
+            check(launches == batches, f"evaluate b{batch}: K1 launched {launches} times for "
+                  f"{batches} batches")
+            dets = json.loads((out / "0_dets.json").read_text())
+            n_det = sum(len(d) for d in dets)
+            check(len(dets) == EVAL_IMAGES and n_det >= 1,
+                  f"evaluate b{batch}: {n_det} detections over {len(dets)} images")
+            fwd = [1e3 * t for t in times["forward_and_decode"]]
+            sweep = times["eval_outputs"][0]
+            print(f"[13] evaluate CLI, B3 512x1024 bf16 batch {batch} on {EVAL_IMAGES} frames "
+                  f"(after a warm-up run): "
+                  f"forward+decode ms/batch {[round(t, 3) for t in fwd]} (median "
+                  f"{np.median(fwd):.3f}, synced); sweep {sweep:.3f} s = "
+                  f"{EVAL_IMAGES / sweep:.2f} img/s (host data, device, dets JSON); AP scoring "
+                  f"{times['evaluate_from_json'][0]:.3f} s; whole CLI {total:.2f} s; detections "
+                  f"{n_det}; K1 launches {launches} = batches {batches}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; [{smi}]", flush=True)
+            hold_affinity(13, f"the evaluate CLI's first b{batch} batch", grouped)
+
+        model = evaluate_cli.seeded_model(Config(cfg), 8, dev)
+        model.load_state_dict(torch.load(ckpt, weights_only=True)["model"])
+        loader = get_dataloader(2, "cityscapes", str(root), "val",
+                                transforms=CommonTransforms(load_trans_config(), "val"))
+        images, packed, _ = next(iter(loader))
+        mc = model.cfg
+        anchors = torch.tensor(generate_anchors(*EVAL_INPUT, pyramid_levels=mc.pyramid_levels,
+                                                anchor_scale=mc.anchor_scale), device=dev)
+        with torch.inference_mode():
+            dets = decode.forward_and_decode(model, torch.from_numpy(images).to(dev), anchors,
+                                             *EVAL_HW, 2.0, DecodeConfig())
+        gt_polys, gt_cls = (torch.from_numpy(a) for a in (packed.polys, packed.cls_ids))
+        card_ms = []
+        iou = device_iou.iou_matrix(dets, gt_polys.to(dev), gt_cls.to(dev), *EVAL_HW)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            device_iou.iou_matrix(dets, gt_polys.to(dev), gt_cls.to(dev), *EVAL_HW)
+            torch.cuda.synchronize()
+            card_ms.append(1e3 * (time.perf_counter() - t0))
+        cpu = device_iou.iou_matrix(type(dets)(*(t.cpu() for t in dets)), gt_polys, gt_cls,
+                                    *EVAL_HW)
+        err = float((iou[0].cpu() - cpu[0]).abs().max())
+        check(err <= 1e-6 and all(torch.equal(a.cpu(), b) for a, b in zip(iou[1:], cpu[1:])),
+              f"iou_matrix: card and CPU differ by {err}")
+        print(f"[13] iou_matrix (2 frames, 32 decoded x 96 GT masks at 512x1024): card == CPU "
+              f"within {err:.3g} (<= 1e-6), max IoU {float(iou[0].max()):.4f}; card ms "
+              f"{[round(t, 2) for t in card_ms]}", flush=True)
+        del model, dets
+
+        out = base / "test_out"
+        test_cfg = {"data": {"test_dir": str(root / "leftImg8bit" / "val"), "test_image": None,
+                             "save_dir": str(out), "dataset": "dir", "batch_size": 2,
+                             "input_size": list(EVAL_INPUT), "num_classes": 8},
+                    **cfg, "weights_path": str(ckpt), "decode_cfg_path": None,
+                    "trans_cfg_path": None}
+        (base / "test.yaml").write_text(yaml_text(test_cfg))
+        affinity.launches = 0
+        with first_k1_inputs() as grouped:
+            t0 = time.perf_counter()
+            test_cli.main(["--cfg_path", str(base / "test.yaml")])
+            total = time.perf_counter() - t0
+        launches = affinity.launches
+        frames = sorted(p.name for p in (root / "leftImg8bit" / "val").rglob("*.png"))
+        overlays = sorted(p.name for p in out.glob("*.png"))
+        check(overlays == frames, f"test CLI wrote {overlays}, want {frames}")
+        for name in overlays:
+            shape = png.read_png(str(out / name)).shape
+            check(shape == (*EVAL_HW, 3), f"overlay {name} decodes to {shape}")
+        check(launches == math.ceil(EVAL_IMAGES / 2), f"test CLI: K1 launched {launches} times")
+        print(f"[13] test CLI, B3 512x1024 bf16 batch 2: {len(overlays)} overlays, each "
+              f"decoding to {EVAL_HW[0]}x{EVAL_HW[1]}x3; K1 launches {launches}; "
+              f"{total:.2f} s; [{smi}]", flush=True)
+        hold_affinity(13, "the test CLI's first b2 batch", grouped)
+
+
 def main() -> None:
     dev = require_cuda()
     kernel_timing.hook(build)
@@ -1002,7 +1305,7 @@ def main() -> None:
     print(f"[1] device {name} (count {torch.cuda.device_count()}); nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    built = build.build_all(KERNELS)
+    built = build.build_all(KERNELS + HOST_HELPERS)
     lib, seconds = built["affinity"]
     build.load("affinity")
     print(f"[2] built K1 {lib.relative_to(build.BUILD_DIR.parents[1])} in "
@@ -1030,6 +1333,7 @@ def main() -> None:
     k6_record = phase_minr2(dev)
     k6_record["launches"] = phase_fullres_slice(smi)
     phase_data_parallel(smi, train_ms)
+    phase_eval_slice(dev, smi)
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))
     print(smi)

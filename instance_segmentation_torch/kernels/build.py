@@ -1,12 +1,15 @@
-"""Build and load the CUDA kernels of ``csrc/``.
+"""Build and load the CUDA kernels and host helpers of ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/<name>-<hash>.so`` under the repository root
-(listed in ``.gitignore``), then loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited kernel rebuilds and an unchanged one is
-reused. Nothing is built at import time: the first ``load`` of a kernel in a
-process builds it if needed; ``build_all`` builds several at once, one
-``nvcc`` process per source, all started together. ``nvcc`` runs with
+(listed in ``.gitignore``), then loaded with ``ctypes``. A ``csrc/<name>.c``
+is host code (no device code: ``png_unfilter.c``), compiled by the host C
+compiler (``$CC``, else ``cc``) the same way, on any machine. The hash
+covers the source and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing is built at import time: the first
+``load`` of a library in a process builds it if needed; ``build_all``
+builds several at once, one compiler process per source, all started
+together. ``nvcc`` runs with
 ``-Xptxas -v``; its output (each kernel's registers, spills and shared
 memory) is kept beside the library as ``<name>-<hash>.log`` and read by
 ``ptxas_usage``. ``launch`` calls an entry point on a device's current
@@ -33,6 +36,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_CC_FLAGS = ("-std=c11", "-O2", "-shared", "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -46,9 +50,27 @@ def nvcc_path() -> str:
     return found
 
 
+def host_cc_path() -> str:
+    cc = os.environ.get("CC") or "cc"
+    found = shutil.which(cc)
+    if found is None:
+        raise RuntimeError(f"host C compiler {cc!r} not found (set CC)")
+    return found
+
+
+def source(name: str) -> Path:
+    """``csrc/<name>.cu`` (a CUDA kernel), else ``csrc/<name>.c`` (host code)."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.is_file() else CSRC / f"{name}.c"
+
+
+def _flags(src: Path) -> Tuple[str, ...]:
+    return NVCC_FLAGS if src.suffix == ".cu" else HOST_CC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -56,7 +78,9 @@ def _start(name: str) -> Tuple[subprocess.Popen, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    src = source(name)
+    compiler = nvcc_path() if src.suffix == ".cu" else host_cc_path()
+    cmd = [compiler, *_flags(src), "-o", tmp, str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True), tmp
 
@@ -65,7 +89,8 @@ def _finish(name: str, proc: subprocess.Popen, tmp: str) -> Path:
     try:
         output, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu ({proc.returncode}):\n{output}")
+            raise RuntimeError(f"{proc.args[0]} failed for {source(name).name} "
+                               f"({proc.returncode}):\n{output}")
         out = library_path(name)
         out.with_suffix(".log").write_text(output)
         os.replace(tmp, out)
@@ -76,8 +101,8 @@ def _finish(name: str, proc: subprocess.Popen, tmp: str) -> Path:
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
-    """Compile every ``csrc/<name>.cu`` not yet built, all ``nvcc`` processes
-    running at once. Returns {name: (library, seconds until it was ready)}."""
+    """Compile every source of ``csrc/`` named in ``names`` not yet built,
+    all compiler processes running at once. Returns {name: (library, seconds until it was ready)}."""
     t0 = time.perf_counter()
     done, running = {}, {}
     try:
@@ -99,7 +124,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, float]]:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` or ``.c`` unless its library is already built."""
     return build_all([name])[name][0]
 
 
@@ -151,5 +176,5 @@ def launch(fn, device: torch.device, *args) -> int:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.c``, built on first use."""
     return ctypes.CDLL(str(build(name)))

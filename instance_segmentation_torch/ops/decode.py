@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from instance_segmentation_torch.kernels.affinity import affinity_assign
-from instance_segmentation_torch.ops.geometry import fma, point_in_polygon
+from instance_segmentation_torch.ops.geometry import fma, point_in_polygon, rasterize_polygon
 
 
 @dataclass(frozen=True)
@@ -335,6 +335,19 @@ def assemble_objects(kp_rc: torch.Tensor, kp_valid: torch.Tensor,
     n = torch.where(enough, n, torch.zeros_like(n)).int()
     poly = torch.where(enough[..., None, None], poly, torch.zeros_like(poly))
     return poly, n, centers, ok
+
+
+def render_masks(dets: Detections, h: int, w: int, max_masks: int | None = None
+                 ) -> torch.Tensor:
+    """Decoded polygons rasterized to instance masks on the detections'
+    device (``geometry.rasterize_polygon``): bool [B, D', h, w], D' =
+    ``max_masks`` or D; invalid detections render empty. Counterpart of
+    ``render_masks`` in the JAX decode (``ops/decode.py:586-606``)."""
+    polys, valid = dets.polygons, dets.obj_valid
+    if max_masks is not None:
+        polys, valid = polys[:, :max_masks], valid[:, :max_masks]
+    masks = rasterize_polygon(polys.flip(-1), h, w)              # (x, y) -> (row, col)
+    return masks & valid[..., None, None]
 
 
 # ---------------------------------------------------------------------------

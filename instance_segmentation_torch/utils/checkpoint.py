@@ -1,4 +1,5 @@
-"""Checkpoint save and resume for a ``Trainer``, and the non-strict warm start.
+"""Checkpoint save and resume for a ``Trainer``, restore into a model alone
+(the evaluate and test entry points), and the non-strict warm start.
 
 Counterpart of ``instance_segmentation_tpu/utils/checkpoint.py`` (orbax there,
 ``torch.save`` here), with the reference's file names
@@ -118,25 +119,32 @@ class CheckpointManager:
             return int(m.group(2)), int(m.group(3))     # iter save
         return sorted((n for n in os.listdir(self.save_dir) if _NAME_RE.match(n)), key=key)
 
-    def restore_latest(self, trainer) -> Tuple[int, float]:
-        """Restore the latest checkpoint into ``trainer``. Returns (start
-        epoch, best_ap): (0, 0.0) and the trainer untouched without one.
-        With a data-parallel trainer every rank must call it, and every rank
-        restores the file rank 0 picked."""
+    def restore_latest(self, target) -> Tuple[int, float]:
+        """Restore the latest checkpoint into ``target``, a ``Trainer`` or a
+        model alone (``torch.nn.Module``: its weights only, for evaluation).
+        Returns (start epoch, best_ap): (0, 0.0) and the target untouched
+        without one. With a data-parallel trainer every rank must call it,
+        and every rank restores the file rank 0 picked."""
         names = self.list_checkpoints()
-        if trainer.group is not None:
+        group = None if isinstance(target, torch.nn.Module) else target.group
+        if group is not None:
             picked = [names[-1] if names else None]
-            dist.broadcast_object_list(picked, src=dist.get_global_rank(trainer.group, 0),
-                                       group=trainer.group)
+            dist.broadcast_object_list(picked, src=dist.get_global_rank(group, 0),
+                                       group=group)
             names = [picked[0]] if picked[0] else []
         if not names:
             return 0, 0.0
-        return self.restore_named(names[-1], trainer)
+        return self.restore_named(names[-1], target)
 
-    def restore_named(self, name: str, trainer) -> Tuple[int, float]:
-        """Restore ``name`` into ``trainer``; returns (epoch + 1, best_ap)."""
+    def restore_named(self, name: str, target) -> Tuple[int, float]:
+        """Restore ``name`` into ``target`` (a ``Trainer``, or a model alone:
+        its ``state_dict``, strict); returns (epoch + 1, best_ap)."""
         payload = torch.load(os.path.join(self.save_dir, name), map_location="cpu",
                              weights_only=True)
+        if isinstance(target, torch.nn.Module):
+            target.load_state_dict(payload["model"])
+            return payload["epoch"] + 1, payload["best_ap"]
+        trainer = target
         trainer.model.load_state_dict(payload["model"])
         trainer.optimizer.load_state_dict(payload["optimizer"])
         trainer.steps = payload["step"]

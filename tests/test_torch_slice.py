@@ -1,7 +1,7 @@
 """The port's slice end to end on the CPU: a serve.Predictor (EfficientSeg-B0
 at 128x256, float32, kp_th 2000) holding JAX-converted weights, against the
 JAX model and decode on the same weights and frames; and the port's import
-boundary (no jax, flax, yaml or cv2)."""
+boundary (no jax, flax, yaml, cv2, PIL or orbax)."""
 
 import os
 import subprocess
@@ -90,6 +90,8 @@ def test_predictor_answers_requests(slice_case):
 
 
 def test_port_imports_no_jax_flax_yaml_or_cv2():
+    """Every module of the port, the entry points and chip_smoke.py import
+    none of jax, flax, yaml, cv2, PIL, orbax or the JAX package."""
     prog = (
         "import sys, chip_smoke\n"
         "import instance_segmentation_torch.serve, instance_segmentation_torch.device\n"
@@ -98,9 +100,17 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
         "import instance_segmentation_torch.kernels.rasterize, instance_segmentation_torch.kernels.ae_terms\n"
         "import instance_segmentation_torch.kernels.minr2, instance_segmentation_torch.tools.fullres_demo\n"
         "import instance_segmentation_torch.ops.targets, instance_segmentation_torch.weights\n"
+        "import instance_segmentation_torch.evaluate, instance_segmentation_torch.test\n"
+        "import instance_segmentation_torch.configs, instance_segmentation_torch.data\n"
+        "import instance_segmentation_torch.transforms, instance_segmentation_torch.evaluation\n"
+        "import instance_segmentation_torch.evaluation.device_iou\n"
+        "import instance_segmentation_torch.utils.png, instance_segmentation_torch.utils.image\n"
+        "import instance_segmentation_torch.utils.visualize, instance_segmentation_torch.utils.meters\n"
+        "import instance_segmentation_torch.utils.logger, instance_segmentation_torch.utils.checkpoint\n"
+        "import instance_segmentation_torch.tools.make_synthetic_cityscapes\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2',\n"
-        "                                    'instance_segmentation_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'PIL',\n"
+        "                                    'orbax', 'instance_segmentation_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
