@@ -94,7 +94,30 @@ Phases, one result line each; any failure raises and exits non-zero:
      the first batch of each timed run (B=2 and B=8, K=20000, D=96);
      ``iou_matrix`` on the card against the CPU (1e-6); the test CLI
      writing one overlay per frame, each decoding to the frame's shape, and
-     K1 held on its first batch's inputs.
+     K1 held on its first batch's inputs;
+ 14. the training slice through the entry point ``python -m
+     instance_segmentation_torch.train`` (called in-process) on a synthetic
+     Cityscapes tree of 16 train and 4 val frames at 1024x2048 (written by
+     8 processes from the data loader's fork server): EfficientSeg-B3 bf16 with
+     float32 master weights at 512x1024, batch 4, M=96, V=256, P=1024, Adam
+     2e-5 (the JAX default train config): (a) the default transforms
+     (resize, hflip, brightness) with 4 data workers, 2 epochs of 2 steps,
+     checkpoints every 2 steps and every epoch, the in-loop eval in epoch 1,
+     then the same run resumed to a third epoch with 1 worker (from the file
+     ``restore_latest`` picks); (b) every train op (``shuffle_trans_seq``
+     over flip, brightness, contrast, saturation, hue and channel
+     permutation, then resize, random resize, rotation and a 1024x512 crop)
+     with 4 workers, 1 epoch of 2 steps; (c) the packed path: the port's
+     ``preprocess_cityscapes --cache_images``, then ``cityscapes_packed``
+     with ``tpu.device_aug``, 1 epoch of 2 steps. Each run prints its
+     synchronised step times, the data wait before each step and the
+     data-wait share of its epochs, peak memory, its first and last loss
+     lines, its checkpoints, and its launches (K2-K5 once a step, K6 never,
+     K1 once an eval batch); (a) prints its AP line. K2, K5, K3 and K4 are
+     held against their twins on (a)'s first step's targets and AE fields,
+     and K1 on its first eval batch, as in phases 7 and 13; the warp's C
+     helper against its numpy twin and the HSV pair are timed on one
+     512x1024 frame, and one batch of each data path on one host thread.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -105,7 +128,10 @@ PyTorch's included.
 Each path's launch counts are set to 0 just before it runs and read just
 after: K1's from the serving slice, K2-K5's from the training slice, K6's
 from the full-resolution slice; phase 12's ranks count their own; phase 13
-counts K1 over each CLI run. The
+counts K1 over each CLI run, and phase 14 every kernel over each train run.
+Phase 15 stops the data workers' fork server and fails if a process this
+script started (its descendants, multiprocessing's resource tracker aside:
+it ends with this process) is still alive. The
 lines before the last are a JSON record of the kernels and the
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it raises before
@@ -118,6 +144,9 @@ import contextlib
 import gc
 import json
 import math
+import multiprocessing.resource_tracker
+import os
+import shutil
 import tempfile
 import time
 from pathlib import Path
@@ -127,9 +156,13 @@ import torch
 
 from instance_segmentation_torch import evaluate as evaluate_cli
 from instance_segmentation_torch import test as test_cli
+from instance_segmentation_torch import train as train_cli
 from instance_segmentation_torch.configs import Config, load_trans_config
 from instance_segmentation_torch.data import get_dataloader
+from instance_segmentation_torch.data.registry import (HOST_HELPERS, BatchMaker, stop_fork_server,
+                                                       worker_context)
 from instance_segmentation_torch.data.cityscapes import CityscapesDataset, parse_eval_label_json
+from instance_segmentation_torch.data.packed_dataset import PackedCityscapesDataset
 from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
 from instance_segmentation_torch.evaluation import device_iou, eval_loop
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
@@ -141,11 +174,15 @@ from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
 from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
-from instance_segmentation_torch.tools import fullres_demo, make_synthetic_cityscapes, multichip
+from instance_segmentation_torch.tools import (
+    fullres_demo, make_synthetic_cityscapes, multichip, preprocess_cityscapes,
+)
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
 from instance_segmentation_torch.transforms import CommonTransforms
+from instance_segmentation_torch.utils import image as image_utils
 from instance_segmentation_torch.utils import png
+from instance_segmentation_torch.utils.checkpoint import CheckpointManager
 from instance_segmentation_torch.utils.logger import Logger
 import kernel_timing
 
@@ -158,7 +195,6 @@ FULLRES_ITERS = 3
 HBM_BYTES_PER_MS = 3.35e9                # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9                    # H100 SXM: 67 TFLOP/s float32 (no tensor cores)
 KERNELS = ("affinity", "rasterize", "ae_terms")
-HOST_HELPERS = ("png_unfilter",)          # csrc/png_unfilter.c: host code, not a kernel
 EVAL_IMAGES, EVAL_HW, EVAL_BATCHES = 8, (1024, 2048), (2, 8)
 EVAL_INPUT, EVAL_COMPOUND = (512, 1024), 3   # eval_cfg.yaml's input at scale 2, B3
 SCENE_SQUARES = (((20, 30), (60, 70), 0), ((80, 100), (110, 150), 1))
@@ -576,10 +612,17 @@ def phase_train_kernels(dev: torch.device) -> list:
     b, m, p, h, w = TRAIN_SHAPE
     _, labels = bench_train_batch(b, m, h, w, edge_cases=True)
     t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p)
-    live = int(t.pt_valid.any(dim=2).sum())
-    records = []
+    record, (cnt, r2, _) = hold_rasterizer(7, TRAIN_SHAPE, t)
+    return [record] + hold_loss_kernels(dev, 7, TRAIN_SHAPE, t, cnt, r2, [0, b - 1])
 
-    # K2
+
+def hold_rasterizer(phase: int, shape, t) -> tuple:
+    """K2 against its twin, bitwise, on the targets ``t`` at ``shape`` (B,
+    M, P, H, W), timed beside its bound; prints a line. Returns its record
+    (launches filled in by a training slice) and the kernel's (cnt, r2,
+    union)."""
+    b, m, p, h, w = shape
+    live = int(t.pt_valid.any(dim=2).sum())
     got = rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w)
     want = rasterize.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w)
     torch.cuda.synchronize()
@@ -596,28 +639,26 @@ def phase_train_kernels(dev: torch.device) -> list:
     # reads the point list once, writes cnt (2 B), r2 (1 B) and the union;
     # its work is integer counting and min, no float32 operations
     bound_ms, bound_by = bound(b * m * p * 9 + b * m * h * w * 3 + b * h * w, 0)
-    print(f"[7] K2 rasterize_cnt_r2 B,M,P,H,W={TRAIN_SHAPE} ({live} of {b * m} slots live, "
+    print(f"[{phase}] K2 rasterize_cnt_r2 B,M,P,H,W={shape} ({live} of {b * m} slots live, "
           f"{int(t.pt_valid.sum())} samples): cnt, r2, union bitwise equal to the twin; "
           f"wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"{own_text(alone)}", flush=True)
-    records.append({"name": "rasterize_cnt_r2", "route": "cuda",
-                    "source": "instance_segmentation_torch/csrc/rasterize.cu",
-                    "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:222",
-                    "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                    "kernel_ms": alone[0], "kernels_per_call": alone[1]})
-
-    cnt, r2, _ = got
-    return records + hold_loss_kernels(dev, 7, TRAIN_SHAPE, t, cnt, r2, [0, b - 1])
+    return {"name": "rasterize_cnt_r2", "route": "cuda",
+            "source": "instance_segmentation_torch/csrc/rasterize.cu",
+            "replaces": "instance_segmentation_tpu/losses/rasterize_pallas.py:222",
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_ms": alone[0], "kernels_per_call": alone[1]}, got
 
 
 def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor,
-                      r2: torch.Tensor, sub) -> list:
+                      r2: torch.Tensor, sub, fields=None) -> list:
     """K5, K3 and K4 against their twins at ``shape`` (B, M, P, H, W), on the
     targets ``t`` and the maps (cnt, r2) of the route the step takes there:
     K5 and K3 to rtol 1e-5, K4 to 1e-4 of max|g| (its autograd twin on the
-    images ``sub``). Prints a line per kernel; returns their records
-    (launches filled in by a training slice)."""
+    images ``sub``). K3 and K4 read ``fields`` (ey, ex, sy, sx), or fields
+    drawn from a seeded generator when None. Prints a line per kernel;
+    returns their records (launches filled in by a training slice)."""
     b, m, p, h, w = shape
     where = f"B,M,P,H,W={shape}"
     records = []
@@ -671,10 +712,11 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     # K3
     xym = losses.coordinate_grid(h, w, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    planes = torch.randn((4, b, h, w), generator=gen, device=dev)
-    fields = [(torch.tanh(planes[0]) + xym[..., 0]).contiguous(),
-              (torch.tanh(planes[1]) + xym[..., 1]).contiguous(),
-              torch.exp(planes[2]), torch.exp(planes[3])]
+    if fields is None:
+        planes = torch.randn((4, b, h, w), generator=gen, device=dev)
+        fields = [(torch.tanh(planes[0]) + xym[..., 0]).contiguous(),
+                  (torch.tanh(planes[1]) + xym[..., 1]).contiguous(),
+                  torch.exp(planes[2]), torch.exp(planes[3])]
     tab = losses.ae_table(t, xym, h, w)
     lut = ae_terms.neg4_lut(losses._NEG4_TABLE, dev)
     cntp = ae_terms.tile_presence(t.points, t.pt_valid, h, w)
@@ -1295,6 +1337,342 @@ def phase_eval_slice(dev: torch.device, smi: str) -> None:
         hold_affinity(13, "the test CLI's first b2 batch", grouped)
 
 
+TRAIN_CLI_SPLITS = (("train", 16), ("val", 4))   # phase 14's synthetic tree
+TRAIN_CLI_HW = (1024, 2048)
+TRAIN_CLI_BATCH, TRAIN_CLI_STEPS = 4, 2
+TRAIN_CLI_KERNELS = dict(TRAIN_KERNELS, minr2_from_cnt=minr2)
+EVERY_OP_TRANS = {       # every train op: shuffled photometric ops, then the geometric ones
+    "train_trans": {
+        "shuffle_trans_seq": ["random_hflip", "random_brightness", "random_contrast",
+                              "random_saturation", "random_hue", "random_perm"],
+        "trans_seq": ["resize", "random_resize", "random_rotate", "random_crop"],
+        "resize": {"target_size": 2},
+        "random_resize": {"scale_range": [1.1, 1.25], "aspect_range": [0.95, 1.05]},
+        "random_rotate": {"rotate_degree": 5},
+        "random_crop": {"ratio": 1.0, "crop_size": [1024, 512]},
+    },
+    "val_trans": {"trans_seq": ["resize"], "resize": {"target_size": 2}},
+}
+
+
+def write_train_tree(root: Path, procs: int = 8) -> None:
+    """Phase 14's synthetic Cityscapes tree (``TRAIN_CLI_SPLITS`` at
+    ``TRAIN_CLI_HW``, 2-6 instances a frame, ~1.8 s a 1024x2048 frame on one
+    core): each
+    frame written by ``make_synthetic_cityscapes.generate`` with a seed of
+    its own into a part of its own, ``procs`` parts at a time (processes
+    from the data loader's fork server), then moved into one tree."""
+    jobs = [(str(root / "parts" / f"{split}{i:03d}"), ((split, 1),), *TRAIN_CLI_HW,
+             1000 * k + i, (2, 6))
+            for k, (split, count) in enumerate(TRAIN_CLI_SPLITS) for i in range(count)]
+    with worker_context().Pool(procs) as pool:
+        pool.starmap(make_synthetic_cityscapes.generate, jobs)
+    for part, ((split, _),), *_ in jobs:
+        index = int(Path(part).name[len(split):])
+        for kind, suffix in (("leftImg8bit", "_leftImg8bit.png"),
+                             ("gtFine", "_gtFine_polygons.json")):
+            dst = root / kind / split / "synth"
+            dst.mkdir(parents=True, exist_ok=True)
+            (Path(part) / kind / split / "synth" / f"synth_000000_000019{suffix}").rename(
+                dst / f"synth_{index:06d}_000019{suffix}")
+    shutil.rmtree(root / "parts")
+
+
+def train_cli_cfg(root: Path, save_dir: Path, trans_path, **top) -> dict:
+    """The JAX default train config (configs/defaults/train_cfg.yaml) at
+    batch 4 on ``root``: B3, bf16 over float32 weights, 512x1024, Adam 2e-5,
+    M=96, V=256, P=1024."""
+    cfg = {"data": {"train_dir": str(root), "save_dir": str(save_dir), "dataset": "cityscapes",
+                    "batch_size": TRAIN_CLI_BATCH, "num_classes": -1, "num_workers": 4},
+           "optimizer": {"lr": "2e-5", "type": "Adam", "momentum": 0.9},
+           "max_iter": TRAIN_CLI_STEPS, "num_epochs": 1, "save_span": 1000, "seed": 1,
+           "compound_coef": 3,
+           "anchors_scales": "[2 ** 0, 2 ** (1.0 / 3.0), 2 ** (2.0 / 3.0)]",
+           "anchors_ratios": "[(1.0, 1.0), (1.4, 0.7), (0.7, 1.4)]",
+           "pretrained_path": None, "decode_cfg_path": None,
+           "trans_cfg_path": None if trans_path is None else str(trans_path),
+           "start_eval_epoch": 1000,
+           "tpu": {"compute_dtype": "bfloat16", "remat": False, "input_size": list(TRAIN_SHAPE[3:])},
+           "static": {"max_instances": TRAIN_SHAPE[1], "max_vertices": 256,
+                      "max_points": TRAIN_SHAPE[2]}}
+    for key, value in top.items():
+        if isinstance(value, dict):
+            cfg[key] = {**cfg[key], **value}
+        else:
+            cfg[key] = value
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_training(record: dict):
+    """While open, every step is timed with the card synchronised before and
+    after it (its stats and batch shape kept), and every epoch's wall time is
+    kept: the rest of an epoch is the loop waiting for data (and logging)."""
+    from instance_segmentation_torch.training import train_step as step_mod
+    from instance_segmentation_torch.training import trainer as epoch_mod
+    real_step, real_epoch = step_mod.Trainer.step, epoch_mod.Trainer.train_epoch
+    record.update(step_ms=[], stats=[], shapes=[], epochs=[], gaps=[])
+
+    def step(self, images, polys, n_verts, cls_ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record["gaps"].append(t0 - record.pop("last", record["epoch_start"]))
+        stats = real_step(self, images, polys, n_verts, cls_ids)
+        torch.cuda.synchronize()
+        record["last"] = time.perf_counter()
+        record["step_ms"].append(1e3 * (record["last"] - t0))
+        record["stats"].append({k: float(v) for k, v in stats.items()})
+        record["shapes"].append(tuple(images.shape))
+        return stats
+
+    def train_epoch(self, loader, epoch):
+        record["epoch_start"] = time.perf_counter()
+        record.pop("last", None)
+        n = len(record["step_ms"])
+        out = real_epoch(self, loader, epoch)
+        record["epochs"].append((time.perf_counter() - record["epoch_start"],
+                                 sum(record["step_ms"][n:]) / 1e3))
+        return out
+    step_mod.Trainer.step, epoch_mod.Trainer.train_epoch = step, train_epoch
+    try:
+        yield record
+    finally:
+        step_mod.Trainer.step, epoch_mod.Trainer.train_epoch = real_step, real_epoch
+
+
+@contextlib.contextmanager
+def first_step_inputs():
+    """While open, the first training step's targets (K2's and K5's inputs,
+    and K3/K4's tables) and the four AE fields K3 gets are kept, copied."""
+    from instance_segmentation_torch.training import train_step as step_mod
+    kept = {}
+    real_targets, real_ae = step_mod.generate_targets, ae_terms.ae_terms
+
+    def targets(*args, **kwargs):
+        t = real_targets(*args, **kwargs)
+        if "targets" not in kept:
+            kept["targets"] = type(t)(*(x.clone() if isinstance(x, torch.Tensor) else x
+                                        for x in t))
+        return t
+
+    def ae(*args):
+        if "fields" not in kept:
+            kept["fields"] = [a.detach().float().contiguous().clone() for a in args[:4]]
+        return real_ae(*args)
+    step_mod.generate_targets, ae_terms.ae_terms = targets, ae
+    try:
+        yield kept
+    finally:
+        step_mod.generate_targets, ae_terms.ae_terms = real_targets, real_ae
+
+
+def host_batch_ms(dataset) -> float:
+    """ms of one batch of 4 made on one host thread (``BatchMaker``: read,
+    transform, pack)."""
+    maker = BatchMaker(dataset, TRAIN_SHAPE[1], 256, True)
+    t0 = time.perf_counter()
+    maker(range(TRAIN_CLI_BATCH))
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def run_train_cli(base: Path, name: str, cfg: dict, dev: torch.device, smi: str,
+                  evals: int) -> dict:
+    """``train.main`` on ``cfg`` (written as YAML), timed; checks finite
+    losses, 512x1024 frames and the launches (K2-K5 once a step, K6 never,
+    K1 once an eval batch); prints its lines and returns its record."""
+    path = base / f"{name}.yaml"
+    path.write_text(yaml_text(cfg))
+    for kname, module in TRAIN_CLI_KERNELS.items():
+        module.launches[kname] = 0
+    affinity.launches = 0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {}
+    with timed_training(rec):
+        t0 = time.perf_counter()
+        train_cli.main(["--cfg_path", str(path)])
+        wall = time.perf_counter() - t0
+    counts = {k: module.launches[k] for k, module in TRAIN_CLI_KERNELS.items()}
+    k1 = affinity.launches
+    steps = len(rec["step_ms"])
+    epochs = len(rec["epochs"])
+    check(steps == TRAIN_CLI_STEPS * epochs, f"{name}: {steps} steps in {epochs} epochs")
+    for i, s in enumerate(rec["stats"]):
+        check(all(np.isfinite(v) for v in s.values()), f"{name} step {i}: a loss is not finite")
+    check(all(sh == (TRAIN_CLI_BATCH, *TRAIN_SHAPE[3:], 3) for sh in rec["shapes"]),
+          f"{name}: batches {sorted(set(rec['shapes']))}")
+    want = {k: (0 if k == "minr2_from_cnt" else steps) for k in counts}
+    check(counts == want, f"{name}: launches {counts}, want {want}")
+    eval_batches = evals * math.ceil(TRAIN_CLI_SPLITS[1][1] / TRAIN_CLI_BATCH)
+    check(k1 == eval_batches, f"{name}: K1 launched {k1} times for {eval_batches} eval batches")
+    peak = torch.cuda.max_memory_allocated(dev)
+    gaps = [1e3 * g for g in rec["gaps"]]
+    epoch_wall = sum(e[0] for e in rec["epochs"])
+    wait_share = 1 - sum(e[1] for e in rec["epochs"]) / epoch_wall
+    files = sorted(p.name for p in Path(cfg["data"]["save_dir"]).glob("efficient_weights_*.pth"))
+    rec.update(wall=wall, files=files, peak=peak, counts=counts, k1=k1, wait_share=wait_share)
+    fmt = lambda s: ", ".join(f"{k} {v:.6g}" for k, v in s.items())   # noqa: E731
+    print(f"[14] {name}: {steps} steps in {epochs} epoch(s), B3 512x1024 bf16 b{TRAIN_CLI_BATCH} "
+          f"(M=96, V=256, P=1024, Adam 2e-5, {cfg['data']['num_workers']} data workers): step "
+          f"ms {[round(t, 3) for t in rec['step_ms']]} (synced); data wait before each step "
+          f"ms {[round(g, 3) for g in gaps]} (the first of an epoch includes the loader's "
+          f"start); data-wait share of the epochs {wait_share:.1%} of {epoch_wall:.2f} s; "
+          f"whole CLI {wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB; launches "
+          f"{counts} = {steps} steps, K1 {k1} = eval batches {eval_batches}; [{smi}]", flush=True)
+    print(f"[14] {name}: first loss line: {fmt(rec['stats'][0])}", flush=True)
+    print(f"[14] {name}: last loss line: {fmt(rec['stats'][-1])}", flush=True)
+    print(f"[14] {name}: checkpoints {files}", flush=True)
+    return rec
+
+
+def host_image_ops(frame: np.ndarray) -> None:
+    """The warp (C helper against its numpy twin, bitwise) and the HSV pair
+    on one 512x1024x3 frame, host ms."""
+    h, w = frame.shape[:2]
+    mat = image_utils.rotation_matrix_2d((w / 2.0, h / 2.0), 5.0, 1.0)
+    times = {}
+    for name, fn in (("warp_affine_linear (C)", image_utils.warp_affine_linear),
+                     ("warp_affine_linear_numpy", image_utils.warp_affine_linear_numpy)):
+        fn(frame, mat, (w, h), (104, 117, 123))
+        t0 = time.perf_counter()
+        times[name] = fn(frame, mat, (w, h), (104, 117, 123))
+        times[name + " ms"] = 1e3 * (time.perf_counter() - t0)
+    check(np.array_equal(times["warp_affine_linear (C)"], times["warp_affine_linear_numpy"]),
+          "warp_affine_linear: the C helper differs from its numpy twin")
+    rgb = frame.astype(np.float32)
+    t0 = time.perf_counter()
+    hsv = image_utils.rgb_to_hsv_f32(rgb)
+    t1 = time.perf_counter()
+    image_utils.hsv_to_rgb_f32(hsv)
+    t2 = time.perf_counter()
+    print(f"[14] host ops on one {h}x{w}x3 frame: warp_affine_linear (5 deg rotation, "
+          f"csrc/warp_affine.c) {times['warp_affine_linear (C) ms']:.2f} ms, its numpy twin "
+          f"{times['warp_affine_linear_numpy ms']:.2f} ms (bitwise equal); rgb_to_hsv_f32 "
+          f"{1e3 * (t1 - t0):.2f} ms, hsv_to_rgb_f32 {1e3 * (t2 - t1):.2f} ms", flush=True)
+
+
+def phase_train_cli(dev: torch.device, smi: str) -> None:
+    """The train entry point ``python -m instance_segmentation_torch.train``
+    (called in-process) on phase 14's synthetic tree: (a) the default
+    transforms with 4 data workers, 2 epochs of 2 steps and the in-loop
+    eval in the last, then resumed to a third epoch with 1 worker; (b) every
+    train op with 4 workers; (c) the packed path (the preprocess tool's
+    labels and image cache) with ``device_aug``. K2-K5 held against their
+    twins on (a)'s first step, K1 on its first eval batch."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        base = Path(tmp)
+        root = base / "cityscapes"
+        t0 = time.perf_counter()
+        write_train_tree(root)
+        print(f"[14] synthetic Cityscapes tree: {dict(TRAIN_CLI_SPLITS)} frames at "
+              f"{TRAIN_CLI_HW[0]}x{TRAIN_CLI_HW[1]}, "
+              f"2-6 instances each, written by 8 processes in {time.perf_counter() - t0:.2f} s "
+              "(the fork server's start included)", flush=True)
+        train_cli_runs(dev, smi, base, root)
+    print(f"[14] phase 14 took {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def train_cli_runs(dev: torch.device, smi: str, base: Path, root: Path) -> None:
+    """Phase 14's runs on the tree at ``root`` (see ``phase_train_cli``)."""
+    default_tf = load_trans_config()
+    (base / "every_op.json").write_text(json.dumps(EVERY_OP_TRANS))
+    datasets = {
+        "default": CityscapesDataset(str(root), CommonTransforms(default_tf, "train", seed=1)),
+        "every_op": CityscapesDataset(str(root), CommonTransforms(
+            load_trans_config(str(base / "every_op.json")), "train", seed=1)),
+    }
+    frame = datasets["default"][0][0]
+    host_image_ops(frame)
+
+    # (a) the default transforms, 4 workers; the last epoch evaluates
+    save = base / "run_a"
+    cfg = train_cli_cfg(root, save, None, num_epochs=2, save_span=2, start_eval_epoch=1,
+                        data={"eval_dir": str(root)})
+    with first_step_inputs() as kept, first_k1_inputs() as grouped:
+        run_train_cli(base, "(a) default transforms", cfg, dev, smi, evals=1)
+    ap_lines = [line for line in (save / "logs" / "log.txt").read_text().splitlines()
+                if "] AP=" in line]
+    check(len(ap_lines) == 1 and (save / "1_dets.json").exists(),
+          f"(a): AP lines {ap_lines}, dets {sorted(p.name for p in save.glob('*_dets.json'))}")
+    print(f"[14] (a) in-loop eval at epoch 1: {ap_lines[0]}", flush=True)
+    t = kept["targets"]
+    shape = (TRAIN_CLI_BATCH, *TRAIN_SHAPE[1:])
+    _, (cnt, r2, _) = hold_rasterizer(14, shape, t)
+    hold_loss_kernels(dev, 14, shape, t, cnt, r2, [0, TRAIN_CLI_BATCH - 1], kept["fields"])
+    hold_affinity(14, "the train CLI's in-loop eval, first batch", grouped)
+
+    # (a) resumed to a third epoch, 1 worker
+    latest = CheckpointManager(str(save)).list_checkpoints()[-1]
+    check(latest == "efficient_weights_00000001.pth", f"(a): restore_latest would pick {latest}")
+    cfg = train_cli_cfg(root, save, None, num_epochs=3, save_span=2, start_eval_epoch=1,
+                        data={"eval_dir": str(root), "num_workers": 1})
+    rec = run_train_cli(base, "(a) resumed", cfg, dev, smi, evals=1)
+    resumed = [line for line in (save / "logs" / "log.txt").read_text().splitlines()
+               if "resumed from epoch" in line]
+    check(len(rec["epochs"]) == 1 and resumed and "resumed from epoch 1," in resumed[-1],
+          f"(a) resumed: {len(rec['epochs'])} epochs, log {resumed}")
+    print(f"[14] (a) resumed from {latest}: {resumed[-1].split('] ', 1)[-1]}; ran epoch 2 only",
+          flush=True)
+
+    # (b) every train op, 4 workers
+    cfg = train_cli_cfg(root, base / "run_b", base / "every_op.json")
+    run_train_cli(base, "(b) every train op", cfg, dev, smi, evals=0)
+
+    # (c) the packed path: labels and the image cache from the preprocess tool
+    t0 = time.perf_counter()
+    for subset in ("train", "val"):
+        preprocess_cityscapes.main(["--root", str(root), "--subset", subset, "--out",
+                                    str(root / "packed" / subset), "--cache_images",
+                                    "--workers", "8"])
+    cached = len(list((root / "packed" / "train").glob("*_img.npy")))
+    check(cached == TRAIN_CLI_SPLITS[0][1], f"(c): {cached} cached train frames")
+    print(f"[14] (c) preprocess_cityscapes --cache_images (8 workers): "
+          f"{TRAIN_CLI_SPLITS} frames in {time.perf_counter() - t0:.2f} s", flush=True)
+    datasets["packed"] = PackedCityscapesDataset(str(root), str(root / "packed" / "train"))
+    # num_classes given: the class-count table knows "cityscapes", not
+    # "cityscapes_packed" (in both packages)
+    cfg = train_cli_cfg(root, base / "run_c", None, tpu={"device_aug": True},
+                        data={"dataset": "cityscapes_packed", "num_classes": 8,
+                              "num_workers": 0})
+    run_train_cli(base, "(c) packed, device_aug", cfg, dev, smi, evals=0)
+    print("[14] host ms per batch of 4 on one thread (read, transform, pack): " + ", ".join(
+        f"{k} {host_batch_ms(d):.1f}" for k, d in datasets.items()) + f"; [{smi}]", flush=True)
+
+
+def descendants() -> list:
+    """(pid, command) of every live process below this one, from ``/proc``."""
+    parent, command = {}, {}
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        head, tail = stat.rsplit(")", 1)
+        fields = tail.split()
+        if fields[0] != "Z":
+            parent[int(entry)], command[int(entry)] = int(fields[1]), head.split("(", 1)[1]
+    below, frontier = [], [os.getpid()]
+    while frontier:
+        kids = [pid for pid, pp in parent.items() if pp in frontier]
+        below += kids
+        frontier = kids
+    return [(pid, command[pid]) for pid in below]
+
+
+def phase_processes() -> None:
+    """Phase 15: the fork server stopped, no process of this script is left
+    but multiprocessing's resource tracker (its pipe from this process
+    closes when this process ends, and it ends then)."""
+    stop_fork_server()
+    tracker = multiprocessing.resource_tracker._resource_tracker._pid
+    left = [p for p in descendants() if p[0] != tracker]
+    check(not left, f"[15] processes still running: {left}")
+    print(f"[15] no process left running (resource tracker {tracker} ends with this one)",
+          flush=True)
+
+
 def main() -> None:
     dev = require_cuda()
     kernel_timing.hook(build)
@@ -1334,6 +1712,8 @@ def main() -> None:
     k6_record["launches"] = phase_fullres_slice(smi)
     phase_data_parallel(smi, train_ms)
     phase_eval_slice(dev, smi)
+    phase_train_cli(dev, smi)
+    phase_processes()
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))
     print(smi)

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/<name>-<hash>.so`` under the repository root
 (listed in ``.gitignore``), then loaded with ``ctypes``. A ``csrc/<name>.c``
-is host code (no device code: ``png_unfilter.c``), compiled by the host C
-compiler (``$CC``, else ``cc``) the same way, on any machine. The hash
+is host code (no device code: ``png_unfilter.c``, ``warp_affine.c``),
+compiled by the host C compiler (``$CC``, else ``cc``) the same way, on any
+machine, without contracting a multiply and an add into one operation
+(``-ffp-contract=off``: ``warp_affine.c`` rounds each as OpenCV does). The hash
 covers the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing is built at import time: the first
 ``load`` of a library in a process builds it if needed; ``build_all``
@@ -36,7 +38,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_CC_FLAGS = ("-std=c11", "-O2", "-shared", "-fPIC")
+HOST_CC_FLAGS = ("-std=c11", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
+HOST_CC_LIBS = ("-lm",)
 
 
 def nvcc_path() -> str:
@@ -79,8 +82,9 @@ def _start(name: str) -> Tuple[subprocess.Popen, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     src = source(name)
-    compiler = nvcc_path() if src.suffix == ".cu" else host_cc_path()
-    cmd = [compiler, *_flags(src), "-o", tmp, str(src)]
+    cuda = src.suffix == ".cu"
+    cmd = [nvcc_path() if cuda else host_cc_path(), *_flags(src), "-o", tmp, str(src),
+           *(() if cuda else HOST_CC_LIBS)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True), tmp
 

@@ -1,0 +1,3 @@
+from instance_segmentation_torch.training.trainer import Trainer
+
+__all__ = ["Trainer"]

@@ -41,10 +41,12 @@ from instance_segmentation_torch.parallel.multihost import process_batch_slice
 from instance_segmentation_torch.weights import init_random, load_flax_variables
 
 
-def make_optimizer(params, opt_type: str = "Adam", lr: float = 2e-5) -> torch.optim.Optimizer:
+def make_optimizer(params, opt_type: str = "Adam", lr: float = 2e-5,
+                   momentum: float = 0.9) -> torch.optim.Optimizer:
     """The reference's optimizer menu (ref train.py:104-117):
 
-    * ``SGD``: ``optax.sgd(lr, momentum=0.9)``, no weight decay;
+    * ``SGD``: ``optax.sgd(lr, momentum=momentum)``, no weight decay (the
+      config's ``optimizer.momentum``; Adam and Adadelta ignore it);
     * ``Adam``: ``optax.chain(add_decayed_weights(1e-4), adam(lr, 0.9,
       0.999, eps=1e-8))`` adds the L2 term to the gradient before the Adam
       moments, over every parameter (batch-norm scale/bias and fusion
@@ -52,7 +54,7 @@ def make_optimizer(params, opt_type: str = "Adam", lr: float = 2e-5) -> torch.op
     * ``Adadelta``: ``optax.adadelta(lr)`` (rho 0.9, eps 1e-6), no weight
       decay."""
     if opt_type == "SGD":
-        return torch.optim.SGD(params, lr=lr, momentum=0.9)
+        return torch.optim.SGD(params, lr=lr, momentum=momentum)
     if opt_type == "Adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=1e-4)
@@ -79,7 +81,7 @@ class Trainer:
     def __init__(self, cfg: EfficientSegConfig, weights: Union[Mapping, torch.Generator],
                  input_hw: Tuple[int, int], loss_cfg: LossConfig = LossConfig(),
                  max_points: int = 2048, opt_type: str = "Adam", lr: float = 2e-5,
-                 device: Optional[torch.device] = None, drop_seed: int = 0,
+                 momentum: float = 0.9, device: Optional[torch.device] = None, drop_seed: int = 0,
                  group=None, device_aug: bool = False, aug_seed: int = 0):
         self.device = torch.device(device) if device is not None else require_cuda()
         self.cfg, self.loss_cfg = cfg, loss_cfg
@@ -110,7 +112,7 @@ class Trainer:
             self.forward = DistributedDataParallel(
                 self.model, device_ids=None if index is None else [index],
                 process_group=group, broadcast_buffers=False, find_unused_parameters=False)
-        self.optimizer = make_optimizer(self.model.parameters(), opt_type, lr)
+        self.optimizer = make_optimizer(self.model.parameters(), opt_type, lr, momentum)
         anchors = generate_anchors(*self.input_hw, pyramid_levels=cfg.pyramid_levels,
                                    anchor_scale=cfg.anchor_scale, scales=cfg.scales,
                                    ratios=cfg.ratios)

@@ -15,6 +15,22 @@ copies the state to the host and writes it in a background thread, and
 ``wait`` ends with a barrier, so that every rank sees the file after it.
 ``restore_latest`` picks the file on rank 0 and every rank restores that
 one.
+
+The warm start (``pretrained_path``, ref train.py:119-132) reads one file,
+``load_pretrained_file``, in one of three formats:
+
+  * a ``torch.save``d ``{"params", "batch_stats"}`` tree of numpy arrays,
+    the JAX package's layout (``weights.export_flax_variables`` gives it;
+    the JAX package reads the same tree from an orbax directory);
+  * a checkpoint of the port (this module's files): its ``"model"``;
+  * the reference's PyTorch EfficientSeg ``state_dict``, or a
+    ``{"state_dict": ...}`` file holding one.
+
+The last two are mapped onto the model's tree by
+``utils/convert_torch_weights.convert_state_dict`` (the port's state dict
+has the reference's names and layouts). Every case is then merged
+non-strictly by ``load_pretrained``, with the JAX package's matched and
+total counts. The reference's trained weights are not in the repository.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from instance_segmentation_torch.utils.convert_torch_weights import convert_state_dict
 from instance_segmentation_torch.weights import export_flax_variables, load_flax_variables
 
 _NAME_RE = re.compile(r"^efficient_weights_(\d{8})\.pth$|^efficient_weights_(\d{4})_(\d{4})\.pth$")
@@ -192,3 +209,35 @@ def load_pretrained(tree: Mapping, model: torch.nn.Module) -> Tuple[int, int]:
     merged = {k: merge(fresh.get(k, {}), tree.get(k, {})) for k in ("params", "batch_stats")}
     load_flax_variables(model, merged)
     return counts["matched"], counts["total"]
+
+
+def _numpy_globals() -> list:
+    """What ``torch.load(weights_only=True)`` must be allowed to build for a
+    tree of numpy arrays."""
+    core = getattr(np, "_core", None) or np.core
+    dtypes = (np.float16, np.float32, np.float64, np.int8, np.int16, np.int32, np.int64,
+              np.uint8, np.bool_)
+    return [core.multiarray._reconstruct, np.ndarray, np.dtype,
+            *{type(np.dtype(t)) for t in dtypes}]
+
+
+def load_pretrained_file(path: str, model: torch.nn.Module) -> Tuple[int, int]:
+    """Non-strict warm start of ``model`` from ``path`` in one of the three
+    formats of the module's docstring. Returns (n_matched, n_total) as
+    ``load_pretrained`` counts them."""
+    with torch.serialization.safe_globals(_numpy_globals()):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, Mapping):
+        raise ValueError(f"{path}: not a weight tree, checkpoint or state_dict")
+
+    def host(tree):
+        if isinstance(tree, Mapping):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    if "params" in payload:
+        tree = host(payload)
+    else:
+        sd = payload["model"] if "model" in payload else payload.get("state_dict", payload)
+        tree, _ = convert_state_dict(host(sd), export_flax_variables(model),
+                                     model.cfg.compound_coef)
+    return load_pretrained(tree, model)

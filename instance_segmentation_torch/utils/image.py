@@ -17,11 +17,25 @@ vertices (any number, negative and out-of-frame ones included):
 
 Those rules were read off OpenCV 5.0's ``fillPoly`` and hold on the seeded
 polygons of ``tests/test_torch_image.py``.
+
+The train augmentations' OpenCV calls, bit for bit against OpenCV 5.0 on
+x86-64 with AVX2 (``tests/test_torch_augment.py``):
+
+  * ``rotation_matrix_2d`` is ``cv2.getRotationMatrix2D``;
+  * ``warp_affine_linear`` is ``cv2.warpAffine`` with ``INTER_LINEAR`` and
+    a constant border on uint8 images (``csrc/warp_affine.c`` says in what
+    order OpenCV rounds; ``warp_affine_linear_numpy`` is its twin);
+  * ``rgb_to_hsv_f32`` and ``hsv_to_rgb_f32`` are ``cv2.cvtColor`` with
+    ``COLOR_RGB2HSV`` and ``COLOR_HSV2RGB`` on float32 images (hue in
+    degrees), OpenCV's vector formulas with its fused multiply-adds, and its
+    scalar ones on the last ``width % HSV_LANES`` pixels of each row.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -48,6 +62,188 @@ def apply_affine_transform(pts: np.ndarray, mat: np.ndarray, size_wh) -> np.ndar
     out = (np.asarray(mat, np.float32) @ np.hstack([pts, ones]).T).T
     out[:, 0] = out[:, 0].clip(0, size_wh[0] - 1)
     out[:, 1] = out[:, 1].clip(0, size_wh[1] - 1)
+    return out
+
+
+WARP_LANES = 16          # output columns per vector step of OpenCV's warpAffine (AVX2)
+HSV_LANES = 8            # pixels per vector step of OpenCV's float HSV conversions (AVX2)
+_FLT_EPSILON = np.float32(np.finfo(np.float32).eps)
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: float64 [2, 3];
+    ``angle`` in degrees, counter-clockwise; the center is taken as float32
+    (OpenCV's ``Point2f``)."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    angle = angle * (np.pi / 180)
+    alpha, beta = np.cos(angle) * scale, np.sin(angle) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def invert_affine(mat: np.ndarray) -> np.ndarray:
+    """``cv2.invertAffineTransform`` of a 2x3 matrix, in float64 (a singular
+    matrix gives zeros, as there)."""
+    m = np.asarray(mat, np.float64).reshape(2, 3)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[1, 1] * d, m[0, 0] * d, -m[0, 1] * d, -m[1, 0] * d
+    b1 = -a11 * m[0, 2] - a12 * m[1, 2]
+    b2 = -a21 * m[0, 2] - a22 * m[1, 2]
+    return np.array([[a11, a12, b1], [a21, a22, b2]], np.float64)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once (the float64 product, exact, and sum)."""
+    return (np.multiply(a, b, dtype=np.float64) + c).astype(np.float32)
+
+
+def _warp_setup(img: np.ndarray, mat, dsize, border_value):
+    """(uint8 [h, w, c] source, float32 inverse map [6], uint8 border [c],
+    (ow, oh)) of a warp, with ``cv2.warpAffine``'s argument rules: ``dsize``
+    is (width, height); a number as ``border_value`` is (v, 0, 0, 0), a
+    sequence is padded with zeros, each value rounded and saturated."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"warp_affine_linear takes a uint8 [H, W] or [H, W, C] image, "
+                         f"got {img.dtype} {img.shape}")
+    ow, oh = (int(v) for v in dsize)
+    if ow <= 0 or oh <= 0:
+        raise ValueError(f"warp_affine_linear: empty output size {dsize}")
+    src = np.ascontiguousarray(img).reshape(img.shape[0], img.shape[1], -1)
+    c = src.shape[2]
+    if c > 4:
+        raise ValueError(f"warp_affine_linear takes at most 4 channels, got {c}")
+    values = [float(v) for v in np.atleast_1d(border_value)][:4]
+    border = np.clip(np.rint(np.array(values + [0.0] * (4 - len(values)))), 0, 255)
+    m = invert_affine(mat).astype(np.float32).reshape(-1)
+    return src, m, border.astype(np.uint8)[:c], (ow, oh)
+
+
+def warp_affine_linear_numpy(img: np.ndarray, mat, dsize, border_value=0) -> np.ndarray:
+    """The plain form of ``warp_affine_linear`` (``csrc/warp_affine.c`` gives
+    the order of operations)."""
+    src, m, border, (ow, oh) = _warp_setup(img, mat, dsize, border_value)
+    h, w, c = src.shape
+    x = np.arange(ow, dtype=np.float32)
+    y = np.arange(oh, dtype=np.float32)[:, None]
+    t0 = ow // WARP_LANES * WARP_LANES
+    coords = []
+    for a, b, off in ((m[0], m[1], m[2]), (m[3], m[4], m[5])):
+        s = np.empty((oh, ow), np.float32)
+        s[:, :t0] = _fma32(a, x[:t0], y * b + off)
+        s[:, t0:] = _fma32(x[t0:], a, y * b) + off
+        coords.append(s)
+    sx, sy = coords
+    fx, fy = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - fx)[..., None], (sy - fy)[..., None]
+    ix, iy = fx.astype(np.int64), fy.astype(np.int64)
+    # the taps from the source framed by one pixel of the border value: a
+    # tap outside the frame is clamped onto that frame
+    framed = np.empty((h + 2, w + 2, c), np.uint8)
+    framed[...] = border
+    framed[1:-1, 1:-1] = src
+    flat = framed.reshape(-1, c)
+    x0, x1 = np.clip(ix, -1, w) + 1, np.clip(ix + 1, -1, w) + 1
+    y0, y1 = (np.clip(iy, -1, h) + 1) * (w + 2), (np.clip(iy + 1, -1, h) + 1) * (w + 2)
+    p00, p01, p10, p11 = (flat[r + q].astype(np.float32)
+                          for r, q in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)))
+    f0 = _fma32(ax, p01 - p00, p00)
+    f1 = _fma32(ax, p11 - p10, p10)
+    out = np.clip(np.rint(_fma32(ay, f1 - f0, f0)), 0, 255).astype(np.uint8)
+    return out.reshape((oh, ow) + img.shape[2:])
+
+
+@functools.cache
+def _native_warp():
+    from instance_segmentation_torch.kernels import build
+    fn = build.load("warp_affine").iseg_warp_affine_linear
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def warp_affine_linear(img: np.ndarray, mat, dsize, border_value=0) -> np.ndarray:
+    """``cv2.warpAffine(img, mat, dsize, flags=cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_CONSTANT, borderValue=border_value)`` on a uint8
+    [H, W] or [H, W, C] image (C <= 4), by the host C function of
+    ``csrc/warp_affine.c`` (built on first use)."""
+    src, m, border, (ow, oh) = _warp_setup(img, mat, dsize, border_value)
+    h, w, c = src.shape
+    out = np.empty((oh, ow, c), np.uint8)
+    if _native_warp()(src.ctypes.data, h, w, c, m.ctypes.data, border.ctypes.data,
+                      out.ctypes.data, oh, ow, WARP_LANES):
+        raise ValueError(f"warp_affine_linear: bad shapes {img.shape} -> {dsize}")
+    return out.reshape((oh, ow) + img.shape[2:])
+
+
+def _rgb_to_hsv(r, g, b, vector: bool):
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + _FLT_EPSILON)
+    r_max, g_max = r == v, g == v
+    dh = np.where(r_max, g - b, np.where(g_max, b - r, r - g))
+    base = np.where(r_max, np.float32(0), np.where(g_max, np.float32(120), np.float32(240)))
+    scale = np.float32(60) / (diff + _FLT_EPSILON)
+    if vector:      # the 360 of a negative hue is added inside the fused step
+        h = _fma32(dh, scale, np.where(r_max & (dh < 0), np.float32(360), base))
+    else:
+        h = _fma32(dh, scale, base)
+        h = np.where(h < 0, h + np.float32(360), h)
+    return np.stack([h, s, v], -1)
+
+
+def rgb_to_hsv_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` of a float32 [H, W, 3] RGB
+    image: hue in degrees [0, 360), saturation, value."""
+    img = np.asarray(img, np.float32)
+    t0 = img.shape[1] // HSV_LANES * HSV_LANES
+    out = np.empty(img.shape, np.float32)
+    for cols, vector in ((slice(0, t0), True), (slice(t0, None), False)):
+        part = img[:, cols]
+        out[:, cols] = _rgb_to_hsv(part[..., 0], part[..., 1], part[..., 2], vector)
+    return out
+
+
+# (b, g, r) of each hue sector as indices into (v, v(1-s), v(1-s f), v(1-s(1-f)))
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+_HUE_SCALE = np.float32(6) / np.float32(360)
+
+
+def _hsv_to_rgb(h, s, v, vector: bool):
+    one = np.float32(1)
+    h = h * _HUE_SCALE
+    if vector:
+        whole = np.trunc(h)
+        f = h - whole
+        sector = whole - np.trunc(whole * np.float32(1 / 6)) * np.float32(6)
+        # OpenCV's masks give a negative sector (from a hue below -60) the
+        # rows of sector 0; the sector is never above 5
+        sector = np.where(sector >= 0, sector, 0).astype(np.int64)
+    else:
+        h = np.fmod(h, np.float32(6))
+        whole = np.floor(h)
+        f = h - whole
+        sector = whole.astype(np.int64)
+        sector = np.where(sector < 0, sector + 6, sector)       # a negative hue wraps
+        outside = (sector < 0) | (sector >= 6)
+        sector, f = np.where(outside, 0, sector), np.where(outside, np.float32(0), f)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, f, one), v * _fma32(-s, one - f, one)], -1)
+    bgr = np.take_along_axis(tab, _SECTORS[sector], -1)
+    if not vector:
+        bgr = np.where((s == 0)[..., None], v[..., None], bgr)
+    return bgr[..., ::-1]
+
+
+def hsv_to_rgb_f32(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of a float32 [H, W, 3] image
+    (hue in degrees); values are not clipped."""
+    hsv = np.asarray(hsv, np.float32)
+    t0 = hsv.shape[1] // HSV_LANES * HSV_LANES
+    out = np.empty(hsv.shape, np.float32)
+    for cols, vector in ((slice(0, t0), True), (slice(t0, None), False)):
+        part = hsv[:, cols]
+        out[:, cols] = _hsv_to_rgb(part[..., 0], part[..., 1], part[..., 2], vector)
     return out
 
 

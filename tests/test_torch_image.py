@@ -143,10 +143,19 @@ def test_detransform_and_scale_affine_equal_jax():
 
 
 def test_train_ops_raise_not_implemented():
+    """The name is kept from when the train ops raised NotImplementedError:
+    now every train op and ``shuffle_trans_seq`` build (as the JAX
+    package's ops), and an unknown op name still raises KeyError."""
     from instance_segmentation_torch.configs import Configer
     cfg = Configer({"train_trans": {"trans_seq": ["resize", "random_hflip"],
-                                    "resize": {"target_size": 2}}})
-    with pytest.raises(NotImplementedError, match="random_hflip"):
-        taug.CommonTransforms(cfg, "train")
+                                    "resize": {"target_size": 2},
+                                    "shuffle_trans_seq": ["random_hue", "random_perm"]}})
+    pipeline = taug.CommonTransforms(cfg, "train")
+    assert [type(op).__name__ for op in pipeline.ops] == ["Resize", "RandomHFlip"]
+    assert sorted(pipeline._shuffle_ops) == ["random_hue", "random_perm"]
+    assert sorted(taug._OP_BUILDERS) == sorted(jaug._OP_BUILDERS)
     with pytest.raises(KeyError):
         taug.CommonTransforms(Configer({"val_trans": {"trans_seq": ["nope"]}}), "val")
+    with pytest.raises(KeyError):
+        taug.CommonTransforms(Configer({"train_trans": {"shuffle_trans_seq": ["nope"]}}),
+                              "train")

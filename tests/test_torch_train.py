@@ -106,12 +106,17 @@ def test_drop_connect_rates_and_modes():
     assert torch.equal(net(x)[-1], net(x)[-1])
 
 
-@pytest.mark.parametrize("opt_type, lr", [("Adam", 2e-5), ("SGD", 2e-5), ("Adadelta", 1.0)])
-def test_adam_matches_optax_over_three_updates(opt_type, lr):
+@pytest.mark.parametrize("opt_type, lr, momentum", [
+    pytest.param("Adam", 2e-5, 0.9, id="Adam-2e-05"),
+    pytest.param("SGD", 2e-5, 0.9, id="SGD-2e-05"),
+    pytest.param("Adadelta", 1.0, 0.9, id="Adadelta-1.0"),
+    pytest.param("SGD", 0.1, 0.5, id="SGD-0.1-momentum-0.5")])
+def test_adam_matches_optax_over_three_updates(opt_type, lr, momentum):
     """The port's optimizer menu against the reference's ``make_optimizer``:
     three updates to atol 1e-7 (Adadelta at lr 1, where its steps of ~3e-3
     show; at 2e-5 they would round away in float32); any other name raises
-    ValueError in both."""
+    ValueError in both. SGD takes the config's momentum (at lr 0.1, where
+    0.5 and the old fixed 0.9 part by ~4e-4)."""
     import optax
     from instance_segmentation_tpu.parallel.train_step import make_optimizer as j_make
     rng = np.random.default_rng(4)
@@ -119,11 +124,11 @@ def test_adam_matches_optax_over_three_updates(opt_type, lr):
     params = {k: rng.normal(0, 1, s).astype(np.float32) for k, s in shapes.items()}
     grads = [{k: rng.normal(0, 1e-2, s).astype(np.float32) for k, s in shapes.items()}
              for _ in range(3)]
-    tx = j_make(opt_type, lr)
+    tx = j_make(opt_type, lr, momentum=momentum)
     p_j = jax.tree.map(jnp.asarray, params)
     state = tx.init(p_j)
     tensors = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
-    opt = make_optimizer(list(tensors.values()), opt_type, lr)
+    opt = make_optimizer(list(tensors.values()), opt_type, lr, momentum)
     for g in grads:
         updates, state = tx.update(jax.tree.map(jnp.asarray, g), state, p_j)
         p_j = optax.apply_updates(p_j, updates)
@@ -133,6 +138,14 @@ def test_adam_matches_optax_over_three_updates(opt_type, lr):
     for k, t in tensors.items():
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(p_j[k]), rtol=0, atol=1e-7)
         assert not np.array_equal(t.detach().numpy(), params[k])
+    if momentum != 0.9:             # the momentum shows: 0.9 lands elsewhere
+        tx9, p9 = j_make(opt_type, lr, momentum=0.9), jax.tree.map(jnp.asarray, params)
+        state9 = tx9.init(p9)
+        for g in grads:
+            updates, state9 = tx9.update(jax.tree.map(jnp.asarray, g), state9, p9)
+            p9 = optax.apply_updates(p9, updates)
+        assert all(float(np.abs(np.asarray(p9[k]) - t.detach().numpy()).max()) > 1e-4
+                   for k, t in tensors.items())
     with pytest.raises(ValueError, match="unknown optimizer"):
         j_make("RMSprop")
     with pytest.raises(ValueError, match="unknown optimizer"):
