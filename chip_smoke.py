@@ -118,6 +118,34 @@ Phases, one result line each; any failure raises and exits non-zero:
      and K1 on its first eval batch, as in phases 7 and 13; the warp's C
      helper against its numpy twin and the HSV pair are timed on one
      512x1024 frame, and one batch of each data path on one host thread.
+ 16. (run before 15) the COCO path and the modules beside it:
+     (a) the JPEG codec (``csrc/jpeg_codec.c``, host code built here) on
+     ``tools/jpeg_digests.py``'s seeded 480x640 and 1024x2048 frames at
+     qualities 75 and 95, its bytes and decoded pixels held to the committed
+     SHA-256 digests of ``cv2.imwrite``'s bytes and ``cv2.imread``'s pixels,
+     encode and decode timed; (b) a synthetic COCO tree
+     (``tools/make_synthetic_coco.py``: 8 train + 8 val JPEG frames at
+     480x640, polygons, a crowd RLE, an RLE-only instance) whose ground
+     truth, scored as predictions, has COCO AP 1; (c) the evaluate CLI on it
+     (B3 bf16 512x1024, ``dataset: coco``, 80 classes, batch 8, the frames
+     stretched to the input by ``random_resize`` at a fixed size, seeded
+     weights with the class bias raised) with affinity and with kmeans
+     grouping, each after a warm-up run: ms of forward and decode
+     (synchronised), img/s, detections, the COCO results file and AP line,
+     K1's launches (one a batch) and K1 held on the first batch; then the
+     kmeans decode on the card against the CPU on the same model outputs
+     (final labels counted, near-ties among them; each Lloyd step replayed
+     on the CPU from the card's state must differ only at near-ties, its
+     centre update within 1e-5); (d) the test CLI with ``draw_flag``: a JPEG
+     overlay per frame decoding to its shape and three debug PNGs; (e) the
+     train CLI on the tree (B3 bf16 512x1024 b4, 80 classes, 2 workers, 1
+     epoch of 2 steps, the in-loop COCO eval; K2-K5 once a step, K6 never,
+     K1 once an eval batch); (f) ``generate_targets(dense_kp=True)`` and
+     ``kp_focal_loss`` at the train cell on the card against the CPU
+     (target bitwise, loss to rtol 1e-5); (g) an EfficientSeg coef-8
+     ``Predictor`` (B7 backbone, P3-P8) in bf16 at 1536x1536, seeded
+     weights, 2 requests at b1 through the full decode (K1 once a request),
+     ms and peak memory.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -128,8 +156,10 @@ PyTorch's included.
 Each path's launch counts are set to 0 just before it runs and read just
 after: K1's from the serving slice, K2-K5's from the training slice, K6's
 from the full-resolution slice; phase 12's ranks count their own; phase 13
-counts K1 over each CLI run, and phase 14 every kernel over each train run.
-Phase 15 stops the data workers' fork server and fails if a process this
+counts K1 over each CLI run, phase 14 every kernel over each train run, and
+phase 16 K1 over each CLI run and the coef-8 requests and every kernel over
+its train run.
+Phase 15, the last, stops the data workers' fork server and fails if a process this
 script started (its descendants, multiprocessing's resource tracker aside:
 it ends with this process) is still alive. The
 lines before the last are a JSON record of the kernels and the
@@ -168,20 +198,23 @@ from instance_segmentation_torch.evaluation import device_iou, eval_loop
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSegConfig, generate_anchors
+from instance_segmentation_torch.models.efficientseg import INPUT_SIZES
 from instance_segmentation_torch.models.layers import BatchNorm
 from instance_segmentation_torch.ops import decode
+from instance_segmentation_torch.ops import kmeans as kmeans_ops
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
 from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
 from instance_segmentation_torch.tools import (
-    fullres_demo, make_synthetic_cityscapes, multichip, preprocess_cityscapes,
+    fullres_demo, jpeg_digests, make_synthetic_cityscapes, make_synthetic_coco, multichip,
+    preprocess_cityscapes,
 )
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
 from instance_segmentation_torch.transforms import CommonTransforms
 from instance_segmentation_torch.utils import image as image_utils
-from instance_segmentation_torch.utils import png
+from instance_segmentation_torch.utils import jpeg, png
 from instance_segmentation_torch.utils.checkpoint import CheckpointManager
 from instance_segmentation_torch.utils.logger import Logger
 import kernel_timing
@@ -611,7 +644,8 @@ def phase_train_kernels(dev: torch.device) -> list:
     their records (launches filled in by the training slice)."""
     b, m, p, h, w = TRAIN_SHAPE
     _, labels = bench_train_batch(b, m, h, w, edge_cases=True)
-    t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p)
+    t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p,
+                         dense_kp=False)
     record, (cnt, r2, _) = hold_rasterizer(7, TRAIN_SHAPE, t)
     return [record] + hold_loss_kernels(dev, 7, TRAIN_SHAPE, t, cnt, r2, [0, b - 1])
 
@@ -900,7 +934,8 @@ def phase_minr2(dev: torch.device) -> dict:
     cases.append(("full resolution", FULLRES_SHAPE, fullres_batch(b, m, h, w)[1]))
     record = None
     for name, (b, m, p, h, w), labels in cases:
-        t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p)
+        t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p,
+                             dense_kp=False)
         cnt = losses.ae_sample_count(t, h, w)
         has = t.pt_valid.any(dim=2)
         got = minr2.minr2_from_cnt(cnt, has)
@@ -1476,10 +1511,12 @@ def host_batch_ms(dataset) -> float:
 
 
 def run_train_cli(base: Path, name: str, cfg: dict, dev: torch.device, smi: str,
-                  evals: int) -> dict:
+                  evals: int, phase: int = 14,
+                  eval_frames: int = TRAIN_CLI_SPLITS[1][1]) -> dict:
     """``train.main`` on ``cfg`` (written as YAML), timed; checks finite
     losses, 512x1024 frames and the launches (K2-K5 once a step, K6 never,
-    K1 once an eval batch); prints its lines and returns its record."""
+    K1 once an eval batch of ``eval_frames``); prints its lines (tagged
+    ``phase``) and returns its record."""
     path = base / f"{name}.yaml"
     path.write_text(yaml_text(cfg))
     for kname, module in TRAIN_CLI_KERNELS.items():
@@ -1503,7 +1540,7 @@ def run_train_cli(base: Path, name: str, cfg: dict, dev: torch.device, smi: str,
           f"{name}: batches {sorted(set(rec['shapes']))}")
     want = {k: (0 if k == "minr2_from_cnt" else steps) for k in counts}
     check(counts == want, f"{name}: launches {counts}, want {want}")
-    eval_batches = evals * math.ceil(TRAIN_CLI_SPLITS[1][1] / TRAIN_CLI_BATCH)
+    eval_batches = evals * math.ceil(eval_frames / TRAIN_CLI_BATCH)
     check(k1 == eval_batches, f"{name}: K1 launched {k1} times for {eval_batches} eval batches")
     peak = torch.cuda.max_memory_allocated(dev)
     gaps = [1e3 * g for g in rec["gaps"]]
@@ -1512,16 +1549,16 @@ def run_train_cli(base: Path, name: str, cfg: dict, dev: torch.device, smi: str,
     files = sorted(p.name for p in Path(cfg["data"]["save_dir"]).glob("efficient_weights_*.pth"))
     rec.update(wall=wall, files=files, peak=peak, counts=counts, k1=k1, wait_share=wait_share)
     fmt = lambda s: ", ".join(f"{k} {v:.6g}" for k, v in s.items())   # noqa: E731
-    print(f"[14] {name}: {steps} steps in {epochs} epoch(s), B3 512x1024 bf16 b{TRAIN_CLI_BATCH} "
+    print(f"[{phase}] {name}: {steps} steps in {epochs} epoch(s), B3 512x1024 bf16 b{TRAIN_CLI_BATCH} "
           f"(M=96, V=256, P=1024, Adam 2e-5, {cfg['data']['num_workers']} data workers): step "
           f"ms {[round(t, 3) for t in rec['step_ms']]} (synced); data wait before each step "
           f"ms {[round(g, 3) for g in gaps]} (the first of an epoch includes the loader's "
           f"start); data-wait share of the epochs {wait_share:.1%} of {epoch_wall:.2f} s; "
           f"whole CLI {wall:.2f} s; peak device memory {peak / 2**30:.2f} GiB; launches "
           f"{counts} = {steps} steps, K1 {k1} = eval batches {eval_batches}; [{smi}]", flush=True)
-    print(f"[14] {name}: first loss line: {fmt(rec['stats'][0])}", flush=True)
-    print(f"[14] {name}: last loss line: {fmt(rec['stats'][-1])}", flush=True)
-    print(f"[14] {name}: checkpoints {files}", flush=True)
+    print(f"[{phase}] {name}: first loss line: {fmt(rec['stats'][0])}", flush=True)
+    print(f"[{phase}] {name}: last loss line: {fmt(rec['stats'][-1])}", flush=True)
+    print(f"[{phase}] {name}: checkpoints {files}", flush=True)
     return rec
 
 
@@ -1640,6 +1677,298 @@ def train_cli_runs(dev: torch.device, smi: str, base: Path, root: Path) -> None:
         f"{k} {host_batch_ms(d):.1f}" for k, d in datasets.items()) + f"; [{smi}]", flush=True)
 
 
+COCO_SPLITS, COCO_HW, COCO_BATCH = (("train", 8), ("val", 8)), (480, 640), 8
+COCO_TRANS = {   # COCO frames stretched to the 512x1024 input (random_resize at a fixed size)
+    "train_trans": {"trans_seq": ["random_resize", "random_hflip", "random_brightness"],
+                    "random_resize": {"ratio": 0.0, "target_size": [1024, 512]},
+                    "random_hflip": {"ratio": 0.5, "swap_pair": []},
+                    "random_brightness": {"ratio": 1.0, "shift_value": 10}},
+    "val_trans": {"trans_seq": ["random_resize"],
+                  "random_resize": {"ratio": 0.0, "target_size": [1024, 512]}},
+}
+COCO_DECODE = {"cls_th": 0.3, "iou_th": 0.2, "kp_th": 20000, "obj_pixel_th": 2,
+               "wh_delta": 0.1, "alpha_ratio": 2, "draw_flag": False}
+KMEANS_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def kmeans_calls():
+    """While open, every ``kmeans`` call of the decode is kept: (points,
+    centres seeded, valid, labels, centres)."""
+    kept = []
+    real = decode.kmeans
+
+    def capture(points, init, valid=None, **kwargs):
+        labels, centres = real(points, init, valid=valid, **kwargs)
+        kept.append((points, init, valid, labels, centres))
+        return labels, centres
+    decode.kmeans = capture
+    try:
+        yield kept
+    finally:
+        decode.kmeans = real
+
+
+def kmeans_mismatches(points, labels, want, centres) -> tuple:
+    """(labels differing from ``want``, of which near-ties): points whose
+    two labels' squared distances to ``centres`` (float64; the outlier
+    label K at infinity) lie within KMEANS_TIE of each other, relative."""
+    got, want = labels.long().cpu(), want.long().cpu()
+    b, k = (got != want).nonzero(as_tuple=True)
+    if b.numel() == 0:
+        return 0, 0
+    p = points.cpu().double()[b, k]                                    # [n, 2]
+    c = centres.cpu().double()[b]                                      # [n, D, 2]
+    d = ((p[:, None, :] - c) ** 2).sum(-1)
+    d = torch.cat([d, torch.full_like(d[:, :1], math.inf)], dim=-1)
+    da, db = d.gather(1, got[b, k][:, None])[:, 0], d.gather(1, want[b, k][:, None])[:, 0]
+    near = (da - db).abs() <= KMEANS_TIE * db.abs().clamp(min=1e-3)
+    return int(b.numel()), int(near.sum())
+
+
+def kmeans_steps(points, init, valid, iters: int) -> tuple:
+    """Each Lloyd step of ``kmeans`` on the card replayed on the CPU from the
+    card's own state, so that no earlier flip carries over: the labels from
+    the card's centres after n steps (n = 0..iters), and each step's centre
+    update from the card's labels before it. Returns (label mismatches,
+    near-ties among them, max centre error)."""
+    diff = near = 0
+    err, prev = 0.0, None
+    valid_h, points_h = valid.cpu(), points.cpu()
+    k = init.shape[1]
+    for n in range(iters + 1):
+        labels, centres = decode.kmeans(points, init, valid=valid, num_iters=n)
+        centres_h = centres.cpu()
+        want = kmeans_ops.pairwise_distance(points_h, centres_h).argmin(-1)
+        want = torch.where(valid_h, want, torch.full_like(want, k))
+        d, nr = kmeans_mismatches(points_h, labels, want, centres_h)
+        diff, near = diff + d, near + nr
+        if prev is not None:
+            member = torch.nn.functional.one_hot(prev.clamp(max=k - 1).long(), k).float()
+            member = member * valid_h[..., None].float()
+            update = (member.transpose(-1, -2) @ points_h) / member.sum(-2).clamp(min=1.0)[..., None]
+            err = max(err, float((update - centres_h).abs().max()))
+        prev = labels.cpu()
+    return diff, near, err
+
+
+def coco_eval_runs(dev: torch.device, smi: str, base: Path, root: Path, cfg: dict,
+                   ckpt: Path) -> None:
+    """(c): the evaluate CLI on the COCO tree, affinity and kmeans grouping,
+    after a warm-up run; then kmeans's decode on the card against the CPU."""
+    real = {name: getattr(eval_loop, name) for name in ("forward_and_decode", "eval_outputs")}
+    for mode in ("affinity", "kmeans"):
+        (base / f"decode_{mode}.yaml").write_text(yaml_text({**COCO_DECODE, "group_mode": mode}))
+        for run in ("warm-up", "timed"):      # the warm-up pays the first calls' set-up
+            eval_cfg = {"data": {"eval_dir": str(root), "save_dir": str(base / f"{mode}_{run}"),
+                                 "dataset": "coco", "batch_size": COCO_BATCH,
+                                 "input_size": list(EVAL_INPUT), "num_classes": -1,
+                                 "subset": "val"},
+                        **cfg, "weights_path": str(ckpt), "weights_dir": None,
+                        "decode_cfg_path": str(base / f"decode_{mode}.yaml"),
+                        "trans_cfg_path": str(base / "coco_trans.json"),
+                        "tpu": {"compute_dtype": "bfloat16", "input_size": list(EVAL_INPUT)}}
+            (base / f"coco_eval_{mode}_{run}.yaml").write_text(yaml_text(eval_cfg))
+        evaluate_cli.main(["--cfg_path", str(base / f"coco_eval_{mode}_warm-up.yaml")])
+        out = base / f"{mode}_timed"
+        times = {name: [] for name in real}
+        for name, fn in real.items():
+            setattr(eval_loop, name, timed(fn, times[name]))
+        affinity.launches = 0
+        try:
+            with first_k1_inputs() as grouped:
+                evaluate_cli.main(["--cfg_path", str(base / f"coco_eval_{mode}_timed.yaml")])
+        finally:
+            for name, fn in real.items():
+                setattr(eval_loop, name, fn)
+        frames = COCO_SPLITS[1][1]
+        batches = math.ceil(frames / COCO_BATCH)
+        check(affinity.launches == batches,
+              f"[16] evaluate ({mode}): K1 launched {affinity.launches} times for {batches}")
+        dets = json.loads((out / "0_dets.json").read_text())
+        n_det = sum(len(d) for d in dets)
+        results = json.loads((out / "0_coco_results.json").read_text())
+        ap = [line.split("] ", 2)[-1] for line in
+              (out / "logs" / "log.txt").read_text().splitlines() if "COCO AP=" in line]
+        check(len(dets) == frames and n_det >= 1 and len(results) == n_det and len(ap) == 1,
+              f"[16] evaluate ({mode}): {n_det} detections, {len(results)} results, AP {ap}")
+        fwd = [1e3 * t for t in times["forward_and_decode"]]
+        sweep = times["eval_outputs"][0]
+        print(f"[16] (c) evaluate CLI, coco, {mode} grouping, B3 512x1024 bf16 80 classes "
+              f"batch {COCO_BATCH} on {frames} frames (after a warm-up run): forward+decode "
+              f"ms/batch {[round(t, 3) for t in fwd]} (synced); sweep {sweep:.3f} s = "
+              f"{frames / sweep:.2f} img/s; detections {n_det}; {out.name}/0_coco_results.json "
+              f"holds {len(results)}; {ap[0]}; K1 launches {affinity.launches} = batches "
+              f"{batches}; [{smi}]", flush=True)
+        hold_affinity(16, f"the evaluate CLI's first coco batch ({mode})", grouped)
+
+    model = evaluate_cli.seeded_model(Config(cfg), 80, dev)
+    model.load_state_dict(torch.load(ckpt, weights_only=True)["model"])
+    trans = load_trans_config(str(base / "coco_trans.json"))
+    loader = get_dataloader(COCO_BATCH, "coco", str(root), "val",
+                            transforms=CommonTransforms(trans, "val"))
+    images = next(iter(loader))[0]
+    mc = model.cfg
+    anchors = generate_anchors(*EVAL_INPUT, pyramid_levels=mc.pyramid_levels,
+                               anchor_scale=mc.anchor_scale)
+    dcfg = DecodeConfig(group_mode="kmeans")
+    with torch.inference_mode():
+        outputs = model(torch.from_numpy(images).to(dev))
+        with kmeans_calls() as card:
+            got = decode_output(outputs, torch.tensor(anchors, device=dev), *EVAL_HW, 2.0, dcfg)
+        host = tuple(o.cpu() for o in outputs)
+        t0 = time.perf_counter()
+        with kmeans_calls() as cpu:
+            want = decode_output(host, torch.tensor(anchors), *EVAL_HW, 2.0, dcfg)
+        cpu_s = time.perf_counter() - t0
+        points, init, valid, labels, centres = card[0]
+        steps = kmeans_steps(points, init, valid, dcfg.kmeans_iters)
+    n_valid = int(valid.sum())
+    check(steps[0] == steps[1] and steps[2] <= 1e-5,
+          f"[16] kmeans steps on the card vs the CPU: {steps[0]} labels differ, {steps[1]} of "
+          f"them near-ties; centres off by {steps[2]}")
+    diff, near = kmeans_mismatches(cpu[0][0], labels, cpu[0][3], cpu[0][4])
+    check(diff <= n_valid // 100, f"[16] kmeans decode card vs CPU: {diff} labels differ")
+    objs = (int(got.obj_valid.sum()), int(want.obj_valid.sum()))
+    same_len = int(((got.poly_len.cpu() == want.poly_len) & want.obj_valid).sum())
+    print(f"[16] (c) kmeans decode ({dcfg.kmeans_iters} Lloyd steps, B={points.shape[0]}, "
+          f"K={points.shape[1]}, D={init.shape[1]}) on the card against the CPU on the same "
+          f"model outputs: {diff} of {n_valid} valid keypoints' final labels differ, {near} of "
+          f"them near-ties (within {KMEANS_TIE} relative) and the rest carried from a flip in "
+          f"an earlier step; each step replayed on the CPU from the card's state: {steps[0]} "
+          f"labels differ over {dcfg.kmeans_iters + 1} assignments, all {steps[1]} near-ties, "
+          f"centre updates within {steps[2]:.2e}; objects {objs[0]} card / {objs[1]} CPU, equal "
+          f"polygon lengths on {same_len}; CPU decode {cpu_s:.2f} s", flush=True)
+
+
+def phase_coco(dev: torch.device, smi: str) -> None:
+    """Phase 16, the COCO path and the modules beside it: (a) the JPEG
+    codec on the host against committed digests of OpenCV's bytes and
+    pixels, timed; (b) a synthetic COCO tree of 8 + 8 frames at 480x640,
+    its ground truth scored as predictions (AP 1); (c) the evaluate CLI on
+    it (B3 bf16 512x1024, 80 classes, batch 8), affinity and kmeans
+    grouping, K1 held on each first batch, kmeans's decode on the card
+    against the CPU; (d) the test CLI with draw_flag; (e) the train CLI,
+    batch 4, 2 workers, 2 steps and the in-loop COCO eval; (f) the dense kp
+    target and its focal loss on the card against the CPU at the train
+    cell; (g) an EfficientSeg-B7 coef-8 Predictor at 1536x1536."""
+    start = time.perf_counter()
+    rows = jpeg_digests.check()
+    bad = [r["case"] for r in rows if not (r["bytes_ok"] and r["pixels_ok"])]
+    check(not bad, f"[16] JPEG codec: the digests of {bad} differ from OpenCV's")
+    print("[16] (a) JPEG codec (csrc/jpeg_codec.c, host) against the committed digests of "
+          "cv2.imwrite's bytes and cv2.imread's pixels, equal on every case: " + "; ".join(
+              f"{r['case']} encode {r['encode_ms']:.2f} ms, decode {r['decode_ms']:.2f} ms"
+              for r in rows), flush=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        base = Path(tmp)
+        root = base / "coco"
+        t0 = time.perf_counter()
+        make_synthetic_coco.generate(str(root), COCO_SPLITS, *COCO_HW, seed=0)
+        dets, infos = make_synthetic_coco.gt_detections(str(root), "val")
+        out = base / "coco_gt"
+        out.mkdir()
+        (out / "0_dets.json").write_text(json.dumps(dets))
+        (out / "0_infos.json").write_text(json.dumps(infos))
+        gt = eval_loop.evaluate_from_json(Config({"eval_dir": str(root)}), 0, str(out), "coco",
+                                          Logger(), 80, orig_hw=COCO_HW)
+        check(gt["AP"] == 1.0 and gt["AP50"] == 1.0, f"[16] COCO AP of the ground truth: {gt}")
+        print(f"[16] (b) synthetic COCO tree {dict(COCO_SPLITS)} at {COCO_HW[0]}x{COCO_HW[1]} "
+              f"(JPEG, each frame polygons, a crowd RLE, an RLE-only instance) written in "
+              f"{time.perf_counter() - t0:.2f} s; its ground truth scored as predictions: COCO "
+              f"AP {gt['AP']!r} AP50 {gt['AP50']!r} AP75 {gt['AP75']!r} over "
+              f"{len(gt['classes'])} classes", flush=True)
+
+        cfg = {"seed": 1, "compound_coef": EVAL_COMPOUND}
+        model = evaluate_cli.seeded_model(Config(cfg), 80, torch.device("cpu"))
+        eval_weights(model, seed=1)
+        ckpt = base / "weights" / "efficient_weights_00000000.pth"
+        ckpt.parent.mkdir()
+        torch.save({"model": model.state_dict(), "epoch": -1, "best_ap": 0.0}, ckpt)
+        del model
+        (base / "coco_trans.json").write_text(json.dumps(COCO_TRANS))
+        coco_eval_runs(dev, smi, base, root, cfg, ckpt)
+
+        out = base / "coco_test"
+        (base / "decode_draw.yaml").write_text(yaml_text({**COCO_DECODE, "draw_flag": True}))
+        test_cfg = {"data": {"test_dir": str(root / "val"), "test_image": None,
+                             "save_dir": str(out), "dataset": "dir", "batch_size": COCO_BATCH,
+                             "input_size": list(EVAL_INPUT), "num_classes": 80},
+                    **cfg, "weights_path": str(ckpt),
+                    "decode_cfg_path": str(base / "decode_draw.yaml"),
+                    "trans_cfg_path": str(base / "coco_trans.json")}
+        (base / "coco_test.yaml").write_text(yaml_text(test_cfg))
+        affinity.launches = 0
+        t0 = time.perf_counter()
+        test_cli.main(["--cfg_path", str(base / "coco_test.yaml")])
+        total = time.perf_counter() - t0
+        frames = sorted(p.name for p in (root / "val").glob("*.jpg"))
+        check(sorted(p.name for p in out.glob("*.jpg")) == frames, "[16] test CLI overlays")
+        for name in frames:
+            shape = jpeg.read_jpeg(str(out / name)).shape
+            check(shape == (*COCO_HW, 3), f"[16] overlay {name} decodes to {shape}")
+            for kind in ("box", "candid", "instances"):
+                check((out / f"{name[:-4]}_{kind}.png").exists(), f"[16] no {kind} PNG of {name}")
+        check(affinity.launches == 1, f"[16] test CLI: K1 launched {affinity.launches} times")
+        print(f"[16] (d) test CLI with draw_flag, B3 512x1024 bf16 batch {COCO_BATCH}: "
+              f"{len(frames)} JPEG overlays each decoding to {COCO_HW[0]}x{COCO_HW[1]}x3, three "
+              f"debug PNGs a frame; K1 launches {affinity.launches}; {total:.2f} s; [{smi}]",
+              flush=True)
+
+        save = base / "coco_train"
+        cfg = train_cli_cfg(root, save, base / "coco_trans.json", start_eval_epoch=0,
+                            data={"dataset": "coco", "eval_dir": str(root), "num_workers": 2})
+        run_train_cli(base, "(e) train CLI on the COCO tree", cfg, dev, smi, evals=1, phase=16,
+                      eval_frames=COCO_SPLITS[1][1])
+        ap = [line for line in (save / "logs" / "log.txt").read_text().splitlines()
+              if "COCO AP=" in line]
+        check(len(ap) == 1 and (save / "0_coco_results.json").exists(), f"[16] (e) AP lines {ap}")
+        print(f"[16] (e) in-loop eval: {ap[0].split('] ', 1)[-1]}", flush=True)
+
+    b, m, p, h, w = TRAIN_SHAPE
+    labels = bench_train_batch(b, m, h, w, edge_cases=True)[1]
+    kp = torch.from_numpy(np.random.default_rng(1).normal(-2, 2, (b, h, w)).astype(np.float32))
+    card_t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p)
+    host_t = generate_targets(*map(torch.from_numpy, labels), h, w, max_points=p)
+    check(torch.equal(card_t.kp_tgt.cpu(), host_t.kp_tgt), "[16] dense kp target: card != CPU")
+    got = float(losses.kp_focal_loss(kp.to(dev), card_t.kp_tgt))
+    want = float(losses.kp_focal_loss(kp, host_t.kp_tgt))
+    check(abs(got - want) <= 1e-5 * abs(want), f"[16] kp_focal_loss card {got} vs CPU {want}")
+    target_ms = cuda_median_ms(lambda: generate_targets(
+        *(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p), iters=5)
+    print(f"[16] (f) generate_targets(dense_kp=True) at B={b}, M={m}, P={p}, {h}x{w}: the card's "
+          f"kp_tgt equal to the CPU's bit for bit ({int(host_t.kp_tgt.sum())} pixels set), "
+          f"{target_ms:.3f} ms on the card; kp_focal_loss card {got!r} vs CPU {want!r} "
+          f"(rtol {abs(got - want) / abs(want):.2e} <= 1e-5)", flush=True)
+
+    cfg8 = EfficientSegConfig(num_classes=80, compound_coef=8, compute_dtype=torch.bfloat16)
+    size = INPUT_SIZES[8]
+    t0 = time.perf_counter()
+    pred = Predictor(cfg8, DecodeConfig(), torch.Generator().manual_seed(0), dev,
+                     orig_hw=(size, size), scale=1.0)
+    build_s = time.perf_counter() - t0
+    frames = np.random.default_rng(3).integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    affinity.launches = 0
+    ms = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = pred.predict(frames[i:i + 1])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    check(affinity.launches == 2, f"[16] coef 8: K1 launched {affinity.launches} times")
+    check(bool(torch.isfinite(dets.boxes).all()), "[16] coef 8: boxes not finite")
+    print(f"[16] (g) EfficientSeg coef 8 (B7 backbone, P3-P8, 384-wide BiFPN x8) Predictor, bf16 "
+          f"{size}x{size}, 80 classes, seeded weights (built in {build_s:.1f} s): 2 requests at "
+          f"b1, ms {[round(t, 2) for t in ms]} (the first pays the set-up); K1 launches "
+          f"{affinity.launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; [{smi}]", flush=True)
+    del pred, dets
+    print(f"[16] phase 16 took {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def descendants() -> list:
     """(pid, command) of every live process below this one, from ``/proc``."""
     parent, command = {}, {}
@@ -1713,6 +2042,7 @@ def main() -> None:
     phase_data_parallel(smi, train_ms)
     phase_eval_slice(dev, smi)
     phase_train_cli(dev, smi)
+    phase_coco(dev, smi)
     phase_processes()
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))

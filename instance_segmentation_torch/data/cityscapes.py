@@ -1,7 +1,9 @@
 """Cityscapes dataset: label table, polygon parsing, map-style dataset.
 
-Counterpart of ``instance_segmentation_tpu/data/cityscapes.py``, with PNG
-frames read by ``utils/png.py`` instead of OpenCV (JPEG raises). It mirrors ref data/cityscapes.py: the standard
+Counterpart of ``instance_segmentation_tpu/data/cityscapes.py``, with
+frames read by ``utils/png.py`` and ``utils/jpeg.py`` instead of OpenCV
+(``load_rgb_image`` picks the reader by the file's first bytes, not its
+name). It mirrors ref data/cityscapes.py: the standard
 35-entry Cityscapes label table
 (public metadata from the Cityscapes benchmark), the 8 instance-evaluated
 classes, `gtFine_polygons.json` parsing into (cls_ids, polygons) with
@@ -19,7 +21,8 @@ from typing import List, Tuple
 import numpy as np
 
 from instance_segmentation_torch.data.dataset import DatasetBuilder
-from instance_segmentation_torch.utils.png import read_png
+from instance_segmentation_torch.utils.jpeg import is_jpeg, read_jpeg
+from instance_segmentation_torch.utils.png import SIGNATURE, read_png
 
 Label = namedtuple("Label", [
     "name", "id", "trainId", "category", "categoryId",
@@ -100,8 +103,16 @@ def is_label_file(filename: str) -> bool:
 
 
 def load_rgb_image(path: str) -> np.ndarray:
-    """RGB uint8 [H, W, 3] of a PNG frame (``utils.png.read_png``)."""
-    return read_png(path)
+    """RGB uint8 [H, W, 3] of a PNG or JPEG frame (``utils.png.read_png``,
+    ``utils.jpeg.read_jpeg``), chosen by the file's magic bytes as
+    ``cv2.imread`` chooses; anything else raises a ``ValueError``."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == SIGNATURE:
+        return read_png(path)
+    if is_jpeg(head):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def parse_label_json(label_json: dict) -> Tuple[List[int], List[np.ndarray]]:

@@ -1,6 +1,7 @@
 """Unlabeled directory dataset for inference (ref data/dir.py:18-47);
-counterpart of ``instance_segmentation_tpu/data/dir.py``. ``.jpg`` files are
-listed as there, and raise when read (PNG only)."""
+counterpart of ``instance_segmentation_tpu/data/dir.py``. ``.jpg`` and
+``.png`` files are listed as there and read by ``load_rgb_image``, which
+picks the decoder by the file's magic bytes."""
 
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ Counterpart of ``instance_segmentation_tpu/data/registry.py``:
 read serially, by one prefetch thread, or by a pool of ``num_workers``
 worker processes, as there. ``device_prefetch`` takes the place of
 ``jax.device_put``: pinned host copies and ``non_blocking`` copies onto a
-torch device, a few batches ahead. The ``cityscapes``, ``cityscapes_packed``
-and ``dir`` datasets are ported; ``coco`` raises (ROADMAP Queue 1 item 12).
+torch device, a few batches ahead. The ``cityscapes``, ``cityscapes_packed``,
+``coco`` and ``dir`` datasets are those of the JAX registry.
 
 The pool (the JAX package forks one each epoch) starts its workers from a
 fork server (``worker_context``), never by forking this process, since a
@@ -47,27 +47,13 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from instance_segmentation_torch.data import cityscapes
+from instance_segmentation_torch.data import cityscapes, coco
 from instance_segmentation_torch.data.cityscapes import CityscapesDatasetBuilder
-from instance_segmentation_torch.data.dataset import DatasetBuilder, is_train_phase
+from instance_segmentation_torch.data.coco import COCODatasetBuilder
+from instance_segmentation_torch.data.dataset import is_train_phase
 from instance_segmentation_torch.data.dir import DirDatasetBuilder
 from instance_segmentation_torch.data.packed_dataset import PackedCityscapesDatasetBuilder
 from instance_segmentation_torch.data.packing import PackedLabels, pack_batch
-
-COCO_NUM_CLS = 80          # instance_segmentation_tpu/data/coco.py:num_cls
-
-
-class _NotPortedBuilder(DatasetBuilder):
-    name = ""
-
-    def get_dataset(self, **kwargs):
-        raise NotImplementedError(f"the {self.name!r} dataset is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
-
-
-class COCODatasetBuilder(_NotPortedBuilder):
-    name = "coco"
-
 
 datasetBuildersMap = {
     "cityscapes": CityscapesDatasetBuilder,
@@ -78,7 +64,7 @@ datasetBuildersMap = {
 
 datasetClsNumMap = {
     "cityscapes": cityscapes.num_cls,
-    "coco": COCO_NUM_CLS,
+    "coco": coco.num_cls,
 }
 
 datasetEvalLabelMap = {
@@ -94,7 +80,7 @@ def get_cls_num(dataset_type: str) -> int:
     return datasetClsNumMap[dataset_type]
 
 
-HOST_HELPERS = ("png_unfilter", "warp_affine")   # built in the parent before a pool starts
+HOST_HELPERS = ("png_unfilter", "warp_affine", "jpeg_codec")   # built in the parent before a pool starts
 _POLL_S = 1.0                   # how often the parent checks that the workers live
 _POOLS: "weakref.WeakSet[_Pool]" = weakref.WeakSet()    # pools not yet stopped
 

@@ -16,7 +16,10 @@ the reference's protocol (ref utils/eval_util.py):
 Each batch is one ``forward_and_decode`` call on the model's device, so K1
 (the grouping kernel) launches once a batch. Eager PyTorch needs no padding
 of the last, partial batch (the JAX loop pads it to compile once); the JSON
-is the same. COCO scoring is not ported (ROADMAP Queue 1 item 12).
+is the same. A ``coco`` dataset is scored by the native COCO-protocol AP
+(``coco_ap.py``) against its ``instances.json``, with each prediction mapped
+corner to corner from the ``orig_hw`` decode frame into its image's size,
+and its detections written in the COCO results format too.
 """
 
 from __future__ import annotations
@@ -30,9 +33,13 @@ import torch
 
 from instance_segmentation_torch import data as data_mod
 from instance_segmentation_torch.data.cityscapes import parse_eval_label_json
+from instance_segmentation_torch.data.coco import convert_cls_id_to_index, parse_segmentation
 from instance_segmentation_torch.data.registry import device_prefetch
 from instance_segmentation_torch.evaluation.cityscapes_ap import (
     InstanceGT, InstancePrediction, compute_instance_ap,
+)
+from instance_segmentation_torch.evaluation.coco_ap import (
+    CocoGT, CocoPrediction, compute_coco_ap, rle_to_mask, write_coco_results,
 )
 from instance_segmentation_torch.models.anchors import generate_anchors
 from instance_segmentation_torch.ops.decode import DecodeConfig, forward_and_decode
@@ -41,10 +48,13 @@ from instance_segmentation_torch.utils.png import write_png
 
 
 def decode_cfg_from(cfg) -> DecodeConfig:
+    """The decode YAML's keys, and ``group_mode`` ("affinity" without it),
+    which the JAX package's reader leaves at its default."""
     return DecodeConfig(
         cls_th=float(cfg.cls_th), iou_th=float(cfg.iou_th),
         kp_th=int(cfg.kp_th), obj_pixel_th=int(cfg.obj_pixel_th),
-        wh_delta=float(cfg.wh_delta))
+        wh_delta=float(cfg.wh_delta),
+        group_mode=str(cfg.get("group_mode") or DecodeConfig.group_mode))
 
 
 def detections_to_json(dets, infos) -> List[List]:
@@ -111,16 +121,19 @@ def eval_outputs(output_dir: str, eval_loader, model, epoch: int, decode_cfg, lo
 
 
 def evaluate_from_json(data_cfg, epoch: int, output_dir: str, dataset: str,
-                       logger, num_classes: int):
-    """Score cached detections with the native Cityscapes AP, and with the
-    official cityscapesscripts harness too where it can be imported."""
-    if dataset == "coco":
-        raise NotImplementedError("COCO scoring (coco_ap) is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+                       logger, num_classes: int,
+                       orig_hw: Tuple[int, int] = (1024, 2048)):
+    """Score cached detections: a ``coco`` dataset with the native COCO AP,
+    any other with the native Cityscapes AP, and with the official
+    cityscapesscripts harness too where it can be imported. ``orig_hw`` is
+    the frame the decode detransformed into (``eval_outputs``)."""
     with open(os.path.join(output_dir, f"{epoch}_dets.json")) as f:
         dets_list = json.load(f)
     with open(os.path.join(output_dir, f"{epoch}_infos.json")) as f:
         info_list = json.load(f)
+    if dataset == "coco":
+        return _evaluate_coco(data_cfg, epoch, output_dir, logger, num_classes,
+                              dets_list, info_list, orig_hw)
     predictions: List[InstancePrediction] = []
     ground_truth: List[InstanceGT] = []
     image_sizes: Dict[str, Tuple[int, int]] = {}
@@ -151,6 +164,58 @@ def evaluate_from_json(data_cfg, epoch: int, output_dir: str, dataset: str,
         logger.write(f"  class {c}: AP={vals['AP']:.4f} AP50={vals['AP50']:.4f}")
     _maybe_official_eval(data_cfg, epoch, output_dir, dataset, logger,
                          dets_list, info_list, num_classes)
+    return results
+
+
+def _evaluate_coco(data_cfg, epoch: int, output_dir: str, logger, num_classes: int,
+                   dets_list, info_list, orig_hw: Tuple[int, int] = (1024, 2048)):
+    """Native COCO-protocol mask AP over cached detections (JAX
+    ``_evaluate_coco``). Ground truth comes from the per-subset
+    instances.json the dataset reads; RLE annotations (every iscrowd
+    region) are decoded to masks. The detections are also written to
+    "{epoch}_coco_results.json" in the COCO results format."""
+    root = data_cfg.get("eval_dir") or data_cfg.get("train_dir")
+    subset = data_cfg.get("subset") or "val"
+    with open(os.path.join(root, subset, "instances.json")) as f:
+        blob = json.load(f)
+    path_of = {im["id"]: os.path.join(root, subset, im["file_name"])
+               for im in blob.get("images", [])}
+    wanted = {info[0] for info in info_list}
+    ground_truth = []
+    for ann in blob.get("annotations", []):
+        img_path = path_of.get(ann["image_id"])
+        if img_path not in wanted:
+            continue
+        cls_id = convert_cls_id_to_index(ann["category_id"])
+        area = float(ann["area"]) if "area" in ann else None
+        crowd = bool(ann.get("iscrowd", 0))
+        poly = parse_segmentation(ann)
+        if poly is not None and poly.shape[0] > 2:
+            ground_truth.append(CocoGT(image_id=img_path, cls_id=cls_id, polygon=poly,
+                                       iscrowd=crowd, area=area))
+        elif isinstance(ann.get("segmentation"), dict):
+            ground_truth.append(CocoGT(image_id=img_path, cls_id=cls_id,
+                                       mask=rle_to_mask(ann["segmentation"]),
+                                       iscrowd=crowd, area=area))
+    # the decode detransformed into the fixed orig_hw frame; COCO images
+    # have their own sizes, so each polygon is mapped corner to corner
+    predictions = []
+    image_sizes = {}
+    for dets, info in zip(dets_list, info_list):
+        img_path, img_size = info[0], tuple(info[1])
+        image_sizes[img_path] = img_size
+        fx = (img_size[1] - 1) / max(orig_hw[1] - 1, 1)
+        fy = (img_size[0] - 1) / max(orig_hw[0] - 1, 1)
+        for det in dets:
+            cls_id, score, _center, polygon = det
+            poly = np.asarray(polygon, np.float32) * np.array([fx, fy], np.float32)
+            predictions.append(CocoPrediction(image_id=img_path, cls_id=int(cls_id),
+                                              score=float(score), polygon=poly))
+    results = compute_coco_ap(predictions, ground_truth, image_sizes, num_classes)
+    logger.write(f"[{epoch}] COCO AP={results['AP']:.4f} "
+                 f"AP50={results['AP50']:.4f} AP75={results['AP75']:.4f}")
+    write_coco_results(os.path.join(output_dir, f"{epoch}_coco_results.json"),
+                       dets_list, info_list)
     return results
 
 
@@ -206,5 +271,6 @@ def evaluate_model(data_cfg, eval_loader, transforms, model, epoch: int,
     if num_classes == -1:
         num_classes = data_mod.get_cls_num(dataset)
     eval_outputs(out_dir, eval_loader, model, epoch, decode_cfg, logger, input_hw, orig_hw)
-    results = evaluate_from_json(data_cfg, epoch, out_dir, dataset, logger, num_classes)
+    results = evaluate_from_json(data_cfg, epoch, out_dir, dataset, logger, num_classes,
+                                 orig_hw=orig_hw)
     return epoch, results["AP"], results

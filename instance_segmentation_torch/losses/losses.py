@@ -30,6 +30,10 @@ approximate windowed form (``ae_loss_windowed``): each instance's focal term
 over a fixed crop, plus the pull term, in plain PyTorch; kp comes from the
 deduplicated point list, and no rasterizer runs.
 
+Targets that carry the dense kp map (``generate_targets(dense_kp=True)``,
+its default) give the kp focal loss from that map (``kp_focal_loss``,
+JAX :781-782) on every route; the train step asks for ``dense_kp=False``.
+
 On CPU tensors the kernels' plain twins run instead.
 """
 
@@ -154,6 +158,28 @@ def kp_focal_from_sums(pos: torch.Tensor, neg: torch.Tensor,
     """The kp focal loss from its three batch sums: the positive and negative
     terms and the positive count."""
     return torch.where(num_pos == 0, -neg, -(pos + neg) / num_pos.clamp_min(1.0))
+
+
+def kp_focal_sums(kp_logits: torch.Tensor, kp_tgt: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pos, neg, num_pos) of the CornerNet-style focal loss over the whole
+    batch against a dense target kp_tgt [B, H, W] in [0, 1] (1 at
+    keypoints; ``generate_targets(dense_kp=True)``'s): the JAX
+    ``kp_focal_loss`` = ``focal_heatmap_loss`` without a window."""
+    kp = kp_logits if kp_logits.dim() == 3 else kp_logits[..., 0]
+    pred = torch.sigmoid(kp).clamp(_EPS, 1.0 - _EPS)
+    pos = (kp_tgt == 1.0).to(torch.float32)
+    neg = (kp_tgt < 1.0).to(torch.float32)
+    t2 = (1.0 - kp_tgt) * (1.0 - kp_tgt)
+    pos_sum = (torch.log(pred) * (1.0 - pred) ** 2 * pos).sum()
+    neg_sum = (torch.log(1.0 - pred) * pred ** 2 * (t2 * t2) * neg).sum()
+    return pos_sum, neg_sum, pos.sum()
+
+
+def kp_focal_loss(kp_logits: torch.Tensor, kp_tgt: torch.Tensor) -> torch.Tensor:
+    """kp_logits [B,H,W,1] (or [B,H,W]), kp_tgt [B,H,W] (ref KPFocalLoss
+    :205-213): one focal over the whole batch, num_pos summed across it."""
+    return kp_focal_from_sums(*kp_focal_sums(kp_logits, kp_tgt))
 
 
 def kp_focal_sums_from_union(kp_logits: torch.Tensor, union: torch.Tensor
@@ -413,18 +439,21 @@ def compose_loss(outputs, targets: Targets, anchors: torch.Tensor,
     H, W = kp.shape[1], kp.shape[2]
     xym = coordinate_grid(H, W, kp.device)
     cls_l, reg_l = det_focal_loss(classification, regression, anchors, targets.det_ann, cfg)
+    dense = targets.kp_tgt is not None      # the dense target comes first, as in JAX
     if cfg.ae_window is not None:
-        kp_sums = kp_focal_sums_from_points(kp, targets)
+        kp_sums = None if dense else kp_focal_sums_from_points(kp, targets)
         ae_l = ae_loss_windowed(ae, targets, xym, cfg)
     else:
         if rasterizer_supported(H, W, targets.points.shape[2]):
             cnt, r2, union = rasterize.rasterize_cnt_r2(targets.points, targets.pt_valid, H, W)
-            kp_sums = kp_focal_sums_from_union(kp, union)
+            kp_sums = None if dense else kp_focal_sums_from_union(kp, union)
         else:
             cnt = ae_sample_count(targets, H, W)
             r2 = minr2.minr2_from_cnt(cnt, targets.pt_valid.any(dim=2))
-            kp_sums = kp_focal_sums_from_cnt(kp, cnt)
+            kp_sums = None if dense else kp_focal_sums_from_cnt(kp, cnt)
         ae_l = ae_loss(ae, targets, xym, cnt, r2, cfg)
+    if dense:
+        kp_sums = kp_focal_sums(kp, targets.kp_tgt)
     tan_l = tangent_loss(tan, targets, cfg)
     if group is not None:
         return _data_parallel(cls_l, reg_l, kp_sums, ae_l, tan_l, group)

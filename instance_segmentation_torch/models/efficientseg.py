@@ -1,4 +1,5 @@
-"""EfficientSeg: EfficientNet backbone -> BiFPN (P3..P7) -> anchor box/class
+"""EfficientSeg: EfficientNet backbone -> BiFPN (P3..P7; P3..P8 at
+compound_coef 8) -> anchor box/class
 heads, plus the U-Net kp/ae/tan decoder over [input, P1..P5].
 
 Counterpart of ``instance_segmentation_tpu/models/efficientseg.py`` with the
@@ -53,6 +54,7 @@ FPN_REPEATS = [3, 4, 5, 6, 7, 7, 8, 8, 8]
 BOX_CLASS_REPEATS = [3, 3, 3, 4, 4, 4, 5, 5, 5]
 PYRAMID_LEVELS = [5, 5, 5, 5, 5, 5, 5, 5, 6]
 ANCHOR_SCALE = [4.0, 4.0, 4.0, 4.0, 4.0, 4.0, 4.0, 5.0, 4.0]
+INPUT_SIZES = [512, 640, 768, 896, 1024, 1280, 1280, 1536, 1536]
 
 DEFAULT_MEAN = (0.485, 0.456, 0.406)
 DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -71,9 +73,8 @@ class EfficientSegConfig:
     remat: bool = False                 # recompute backbone and decoder activations in backward
 
     def __post_init__(self):
-        if not 0 <= self.compound_coef <= 7:
-            raise ValueError(f"compound_coef {self.compound_coef} is not ported "
-                             "(0..7; the P8 pyramid of coef 8 is not)")
+        if not 0 <= self.compound_coef <= 8:
+            raise ValueError(f"compound_coef {self.compound_coef}: 0..8")
 
     @property
     def num_anchors(self) -> int:
@@ -137,7 +138,8 @@ class EfficientSeg(nn.Module):
         levels = PYRAMID_LEVELS[coef]
         self.backbone_net = nn.ModuleDict(
             {"model": EfficientNetFeatures(variant, cfg.drop_connect_rate)})
-        self.bifpn = BiFPN(fpn_ch, chans[2:5], FPN_REPEATS[coef], attention=coef < 6)
+        self.bifpn = BiFPN(fpn_ch, chans[2:5], FPN_REPEATS[coef], attention=coef < 6,
+                           use_p8=coef > 7)
         self.regressor = Regressor(fpn_ch, cfg.num_anchors, BOX_CLASS_REPEATS[coef],
                                    levels)
         self.classifier = Classifier(fpn_ch, cfg.num_anchors, cfg.num_classes,

@@ -14,13 +14,20 @@ compute differently):
     the band ``(lo, hi]`` in index order), not ``torch.topk``;
   * the 3x3 peak test zero-fills outside the map;
   * grouping (kernel K1) gives keypoints in no box slot 0 and lets the first
-    maximum win;
+    maximum win; ``group_mode="kmeans"`` refines K1's assignment with
+    ``kmeans_iters`` Lloyd steps in embedding space seeded at the centre
+    embeddings (``ops/kmeans.py``), keeping a refined label only where the
+    keypoint lies in that label's box (JAX ``_decode_core``);
   * the polar sort is stable over ``inf``-padded angles;
   * where the reference's compiler fuses ``a * b + c`` into one rounding
     (box centres, polygon edge crossings) the port does too (``fma``).
 
 Coordinates follow the reference: boxes (x1, y1, x2, y2) at input
-resolution; polygons and centers (x, y) at original resolution.
+resolution; polygons and centers (x, y) at original resolution. The
+embedding frame is the reference's fixed 1024x2048 grid (i / 1023,
+2 j / 2047), computed at the keypoints and box centres rather than sliced
+from the grid, so the decode also takes frames larger than the grid (the
+JAX decode raises there; ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from instance_segmentation_torch.kernels.affinity import affinity_assign
+from instance_segmentation_torch.ops.kmeans import kmeans
 from instance_segmentation_torch.ops.geometry import fma, point_in_polygon, rasterize_polygon
 
 
@@ -49,8 +57,8 @@ class DecodeConfig:
     max_dets: int = 96            # detections kept
     max_poly: int = 1024          # polygon vertex budget per object
     pair_candidates: int = 12     # points tried for the internal-point fallback
-    exact_topk: bool = True       # False (approximate top-k) is not ported
-    group_mode: str = "affinity"  # "kmeans" is not ported yet
+    exact_topk: bool = True       # False (approximate top-k) is TPU-only, not ported
+    group_mode: str = "affinity"  # "affinity" (K1) or "kmeans" (K1, then Lloyd steps)
     kmeans_iters: int = 5
 
 
@@ -362,9 +370,8 @@ def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
     classification [B,A,C]), float32, on one device; anchors [A, 4] on it.
     Grouping runs kernel K1 on CUDA tensors and its plain version on CPU ones.
     """
-    if cfg.group_mode != "affinity":
-        raise NotImplementedError(
-            f"group_mode={cfg.group_mode!r} is not ported yet (ROADMAP item 13)")
+    if cfg.group_mode not in ("affinity", "kmeans"):
+        raise ValueError(f"group_mode={cfg.group_mode!r}: 'affinity' or 'kmeans'")
     if not cfg.exact_topk:
         raise NotImplementedError("approximate top-k is a TPU-only path, not ported")
     kp, ae, _tan, regression, classification = outputs
@@ -386,9 +393,20 @@ def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
 
     ci = ((boxes[..., 1] + boxes[..., 3]) / 2).int().clamp(0, H - 1)
     cj = ((boxes[..., 0] + boxes[..., 2]) / 2).int().clamp(0, W - 1)
-    c_emb = coordinate_grid(H, W, kp.device)[ci, cj]                  # [B,D,2]
+    # the centres' embeddings: coordinate_grid at (ci, cj), computed there so
+    # that frames past 1024x2048 (coef 8's 1536x1536) decode too
+    c_emb = torch.stack([ci.float() / 1023.0, cj.float() * (2.0 / 2047.0)], dim=-1)
 
     assign, _best = affinity_assign(kp_rc, emb, sig, c_emb, boxes, det_valid)
+    if cfg.group_mode == "kmeans":
+        km, _ = kmeans(emb, c_emb, valid=kp_ok, num_iters=cfg.kmeans_iters)
+        D = boxes.shape[1]
+        slot = km.clamp(max=D - 1).long()
+        box = boxes.gather(1, slot[..., None].expand(-1, -1, 4))
+        in_box = ((kp_rc[..., 0] >= box[..., 1]) & (kp_rc[..., 0] <= box[..., 3]) &
+                  (kp_rc[..., 1] >= box[..., 0]) & (kp_rc[..., 1] <= box[..., 2]) &
+                  det_valid.gather(1, slot))
+        assign = torch.where((km < D) & in_box, km, assign)
 
     polys, lens, centers, obj_ok = assemble_objects(
         kp_rc, kp_ok, assign, boxes, det_valid, H, W, orig_h, orig_w, scale_int, cfg)

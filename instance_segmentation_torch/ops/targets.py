@@ -16,8 +16,10 @@ Produced targets:
     points:   i32 [B, M, P, 2]  boundary samples, 2 px max-norm spacing
     normals:  f32 [B, M, P, 2]  inward unit normals per sample
     pt_valid: bool [B, M, P]
-    kp_tgt:   None (the train step asks for ``dense_kp=False``; the kp loss
-              reads the rasterizer's union map instead)
+    kp_tgt:   f32 [B, H, W]    1 at every valid sample pixel (``dense_kp``,
+              the default as in JAX), else None: the train step asks for
+              ``dense_kp=False`` and its kp loss reads the rasterizer's
+              union map, the same binary map
 
 The reference picks each slot's edge data with a one-hot matmul at HIGHEST
 precision (exact); here it is a plain gather. The sample position
@@ -97,12 +99,11 @@ def _sample_one_polygon(poly: torch.Tensor, max_points: int, h: int, w: int):
 
 def generate_targets(polys: torch.Tensor, n_verts: torch.Tensor, cls_ids: torch.Tensor,
                      h: int, w: int, max_points: int = 2048,
-                     dense_kp: bool = False) -> Targets:
+                     dense_kp: bool = True) -> Targets:
     """Batch target generation. polys [B,M,V,2] f32, n_verts [B,M], cls_ids
-    [B,M] int. Only ``dense_kp=False`` is ported: the train step's form."""
-    if dense_kp:
-        raise NotImplementedError("the dense kp mask is not ported; the kp loss "
-                                  "reads the rasterizer's union map")
+    [B,M] int. ``dense_kp`` scatters the max of the valid samples, their
+    indices clipped into the map, into a zero [B, H, W] map (JAX :143-152);
+    without it ``kp_tgt`` is None."""
     del n_verts          # replication padding makes the vertex count unneeded
     inst_valid = cls_ids >= 0                                     # [B, M]
     ymin, ymax = polys[..., 0].amin(-1), polys[..., 0].amax(-1)
@@ -112,8 +113,17 @@ def generate_targets(polys: torch.Tensor, n_verts: torch.Tensor, cls_ids: torch.
     centers = torch.stack([(ymin + ymax) / 2.0, (xmin + xmax) / 2.0], dim=-1)
     points, normals, pt_valid = _sample_one_polygon(polys, max_points, h, w)
     pt_valid = pt_valid & inst_valid[..., None]
+    kp_tgt = None
+    if dense_kp:
+        B = polys.shape[0]
+        rows = points[..., 0].reshape(B, -1).clamp(0, h - 1).long()
+        cols = points[..., 1].reshape(B, -1).clamp(0, w - 1).long()
+        kp_tgt = torch.zeros(B, h * w, dtype=torch.float32, device=polys.device)
+        kp_tgt.scatter_reduce_(1, rows * w + cols, pt_valid.reshape(B, -1).to(torch.float32),
+                               reduce="amax")
+        kp_tgt = kp_tgt.view(B, h, w)
     return Targets(det_ann=det, centers=centers, inst_valid=inst_valid, points=points,
-                   normals=normals, pt_valid=pt_valid, kp_tgt=None)
+                   normals=normals, pt_valid=pt_valid, kp_tgt=kp_tgt)
 
 
 def _shift_zero_fill(x: torch.Tensor, d: int, dim: int) -> torch.Tensor:

@@ -6,10 +6,13 @@ Counterpart of the JAX package's ``test.py``, reading the same config
 files: the model (bf16, as there) and the full decode over an image
 directory (``test_dir``) or one ``test_image``, each frame's instances
 filled over it at alpha 0.5 (``utils/visualize.visualize_instances``) and
-written as PNG into ``save_dir`` under the frame's name. ``weights_path``
-must name a checkpoint exactly; without it the save directory's latest is
-taken, and without any the seeded initialisation of ``seed``. ``draw_flag``
-(the debug drawings) is not ported and raises. Runs on the CUDA card unless
+written into ``save_dir`` under the frame's name, in the format its
+extension names as ``cv2.imwrite`` does: JPEG at quality 95 for ``.jpg``,
+``.jpeg`` and ``.jpe``, PNG otherwise. ``weights_path`` must name a
+checkpoint exactly; without it the save directory's latest is taken, and
+without any the seeded initialisation of ``seed``. ``draw_flag: true`` in
+the decode config adds each frame's three debug drawings
+(``utils/debug_draw.dump_detections``). Runs on the CUDA card unless
 ``--device cpu`` is given.
 """
 
@@ -32,9 +35,20 @@ from instance_segmentation_torch.models import generate_anchors
 from instance_segmentation_torch.ops.decode import forward_and_decode
 from instance_segmentation_torch.transforms import CommonTransforms
 from instance_segmentation_torch.utils.checkpoint import CheckpointManager
+from instance_segmentation_torch.utils.debug_draw import dump_detections
+from instance_segmentation_torch.utils.jpeg import write_jpeg
 from instance_segmentation_torch.utils.logger import Logger
 from instance_segmentation_torch.utils.png import write_png
 from instance_segmentation_torch.utils.visualize import visualize_instances
+
+
+def write_image(path: str, rgb) -> None:
+    """``cv2.imwrite`` of the BGR image: a JPEG (quality 95) for a JPEG
+    extension, else a PNG."""
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg", ".jpe"):
+        write_jpeg(path, rgb)
+    else:
+        write_png(path, rgb)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -44,9 +58,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     data_cfg = cfg.data
     decode_cfg = load_decode_config(cfg.get("decode_cfg_path"))
     trans_cfg = load_trans_config(cfg.get("trans_cfg_path"))
-    if decode_cfg.get("draw_flag"):
-        raise NotImplementedError("draw_flag (utils/debug_draw.py) is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
     os.makedirs(data_cfg.save_dir, exist_ok=True)
     logger = Logger.init_logger(data_cfg.save_dir, run_config=cfg)
 
@@ -89,19 +100,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dcfg = decode_cfg_from(decode_cfg)
     scale = trans_cfg.get("val_trans", "resize", default={}).get("target_size", 1)
     orig_hw = (h * scale, w * scale)
+    draw_flag = bool(decode_cfg.get("draw_flag"))
 
     with torch.inference_mode():
         for images, _, infos in batches:
             images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
             dets = forward_and_decode(model, images, anchors, orig_hw[0], orig_hw[1],
                                       float(scale), dcfg)
-            for det_list, info in zip(detections_to_json(dets, infos), infos):
+            for i, (det_list, info) in enumerate(zip(detections_to_json(dets, infos), infos)):
                 # the reference draws on OpenCV's BGR frame with its palette
                 bgr = load_rgb_image(info.img_path)[..., ::-1]
                 polys = [np.asarray(d[3], np.float32) for d in det_list]
                 out = os.path.join(data_cfg.save_dir, os.path.basename(info.img_path))
-                write_png(out, visualize_instances(bgr, polys)[..., ::-1])
+                write_image(out, visualize_instances(bgr, polys)[..., ::-1])
                 logger.write(f"wrote {out} ({len(det_list)} instances)")
+                if draw_flag:
+                    dump_detections(dets, i, info.img_path, data_cfg.save_dir)
 
 
 if __name__ == "__main__":

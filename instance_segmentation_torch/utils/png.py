@@ -6,9 +6,10 @@ package (``data/cityscapes.py:load_rgb_image``, ``eval_loop.py``,
 palette images, non-interlaced, with any of the five row filters, and
 returns RGB uint8 [H, W, 3] as ``load_rgb_image`` does: grey is replicated,
 alpha is dropped (as ``cv2.IMREAD_COLOR`` drops it) and a palette is
-expanded. 16-bit, low-bit-depth and interlaced PNGs, JPEG and anything else
-raise a ``ValueError`` that names the file. ``write_png`` writes RGB or grey
-uint8.
+expanded. 16-bit, low-bit-depth and interlaced PNGs and anything that is
+not a PNG raise a ``ValueError`` that names the file (JPEG frames are read by
+``utils/jpeg.py``; ``data/cityscapes.load_rgb_image`` picks the reader by
+the file's magic bytes). ``write_png`` writes RGB or grey uint8.
 
 Undoing the row filters is sequential along a row (the Average and Paeth
 filters read the byte just written). ``read_png`` undoes them with
@@ -118,7 +119,7 @@ def _chunks(blob: bytes):
 
 def _header(blob: bytes, path: str):
     if blob[:3] == _JPEG_SOI:
-        raise ValueError(f"{path}: JPEG is not read (PNG only)")
+        raise ValueError(f"{path}: a JPEG file, not a PNG (utils.jpeg.read_jpeg reads it)")
     if blob[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     kind, data = next(_chunks(blob), (None, b""))

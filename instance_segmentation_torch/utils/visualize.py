@@ -8,6 +8,9 @@ gamma)`` as two fused multiply-adds in float32, rounded to the nearest
 integer (ties to even) and saturated.
 Colours are the reference's palette, applied to the channels in the order
 the image holds them (the reference draws on OpenCV's BGR images).
+``draw_rectangle`` and ``visualize_keypoints`` draw, in place, the pixels
+``cv2.rectangle`` (one pixel wide) and ``cv2.circle`` (radius 1, filled)
+draw, clipped at the image's borders.
 """
 
 from __future__ import annotations
@@ -46,16 +49,37 @@ def visualize_instances(img: np.ndarray, polygons: Sequence[np.ndarray],
     return add_weighted(overlay, alpha, img, 1 - alpha)
 
 
+def draw_rectangle(img: np.ndarray, pt1, pt2, color) -> np.ndarray:
+    """``cv2.rectangle(img, pt1, pt2, color)``: the outline, one pixel wide."""
+    h, w = img.shape[:2]
+    (x1, y1), (x2, y2) = pt1, pt2
+    xs, ys = line_pixels(w, h, [x1, x2, x2, x1], [y1, y1, y2, y2],
+                         [x2, x2, x1, x1], [y1, y2, y2, y1])
+    img[ys, xs] = color
+    return img
+
+
 def visualize_boxes(img: np.ndarray, centers, sizes, color=(0, 0, 255)) -> np.ndarray:
     """Rectangles from centers + (w, h) sizes, one pixel wide, in place
     (``cv2.rectangle``; ref visualize.py:55-67)."""
-    h, w = img.shape[:2]
     for c, wh in zip(centers, sizes):
         x, y = float(c[0]), float(c[1])
         bw, bh = float(wh[0]), float(wh[1])
-        x1, y1 = int(x - bw / 2), int(y - bh / 2)
-        x2, y2 = int(x + bw / 2), int(y + bh / 2)
-        xs, ys = line_pixels(w, h, [x1, x2, x2, x1], [y1, y1, y2, y2],
-                             [x2, x2, x1, x1], [y1, y2, y2, y1])
-        img[ys, xs] = color
+        draw_rectangle(img, (int(x - bw / 2), int(y - bh / 2)),
+                       (int(x + bw / 2), int(y + bh / 2)), color)
+    return img
+
+
+_DOT = np.array([(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)])   # cv2.circle, radius 1
+
+
+def visualize_keypoints(img: np.ndarray, kps: np.ndarray, color=(0, 255, 0)) -> np.ndarray:
+    """A dot per keypoint (x, y), in place: ``cv2.circle(img, (int(x),
+    int(y)), 1, color, -1)``, the point and its four neighbours (ref
+    visualize.py:41-45)."""
+    h, w = img.shape[:2]
+    pts = np.asarray(kps, np.float64).reshape(-1, 2)
+    xy = (np.trunc(pts).astype(np.int64)[:, None, :] + _DOT[None]).reshape(-1, 2)
+    inside = (xy[:, 0] >= 0) & (xy[:, 0] < w) & (xy[:, 1] >= 0) & (xy[:, 1] < h)
+    img[xy[inside, 1], xy[inside, 0]] = color
     return img

@@ -148,9 +148,11 @@ def test_prefetch_thread_joins_on_early_exit(tree):
 
 
 def test_what_is_not_ported_raises(tree, tmp_path):
-    """COCO and JPEG frames raise (the packed dataset and the worker pool,
-    once listed here, are ported: tests/test_torch_loader.py)."""
-    with pytest.raises(NotImplementedError, match="coco"):
+    """A COCO tree without its instances.json and a corrupt JPEG frame raise,
+    naming the file (COCO and JPEG frames, the packed dataset and the worker
+    pool, once listed here as not ported, are: tests/test_torch_coco.py,
+    tests/test_torch_jpeg.py, tests/test_torch_loader.py)."""
+    with pytest.raises(FileNotFoundError, match="instances.json"):
         tdata.get_dataloader(1, "coco", tree, "val")
     jpeg = tmp_path / "dir"
     jpeg.mkdir()

@@ -277,10 +277,13 @@ def test_decode_output_synthetic_scene_equals_reference(margin):
 
 
 def test_unported_modes_raise():
+    """Approximate top-k (TPU-only) raises; so does a grouping mode that is
+    neither "affinity" nor "kmeans" (kmeans, once listed here, is ported:
+    tests/test_torch_kmeans.py)."""
     outputs, anchors = chip_smoke.synthetic_scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(ValueError, match="group_mode"):
         td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
-                         td.DecodeConfig(kp_th=2000, group_mode="kmeans"))
+                         td.DecodeConfig(kp_th=2000, group_mode="spectral"))
     with pytest.raises(NotImplementedError, match="approximate top-k"):
         td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
                          td.DecodeConfig(kp_th=2000, exact_topk=False))

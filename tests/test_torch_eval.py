@@ -295,7 +295,9 @@ def test_eval_outputs_matches_jax(tree, weights, monkeypatch, tmp_path):
     want = jel.evaluate_from_json(JConfig(data_cfg.to_dict()), 0, str(tout), "cityscapes",
                                   JLogger(), 8)
     _assert_ap_equal(got, want)
-    with pytest.raises(NotImplementedError, match="COCO"):
+    # COCO scoring is ported (tests/test_torch_coco.py): this tree has no
+    # COCO annotation file
+    with pytest.raises(FileNotFoundError, match="instances.json"):
         tel.evaluate_from_json(data_cfg, 0, str(tout), "coco", TLogger(), 80)
 
 

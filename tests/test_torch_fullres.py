@@ -62,7 +62,8 @@ def both_targets(labels, p):
     arrays = LABELS[labels]()
     want = jax.jit(lambda a, n, c: generate_targets(a, n, c, H, W, max_points=p,
                                                     dense_kp=False))(*map(jnp.asarray, arrays))
-    got = tt.generate_targets(*map(torch.from_numpy, arrays), H, W, max_points=p)
+    got = tt.generate_targets(*map(torch.from_numpy, arrays), H, W, max_points=p,
+                              dense_kp=False)
     np.testing.assert_array_equal(got.points.numpy(), np.asarray(want.points))
     np.testing.assert_array_equal(got.pt_valid.numpy(), np.asarray(want.pt_valid))
     return got, want

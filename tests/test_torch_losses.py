@@ -93,7 +93,8 @@ def both_targets(labels):
     arrays = LABELS[labels]()
     want = jax.jit(lambda p, n, c: generate_targets(p, n, c, H, W, max_points=P,
                                                     dense_kp=False))(*map(jnp.asarray, arrays))
-    got = tt.generate_targets(*map(torch.from_numpy, arrays), H, W, max_points=P)
+    got = tt.generate_targets(*map(torch.from_numpy, arrays), H, W, max_points=P,
+                              dense_kp=False)
     np.testing.assert_array_equal(got.points.numpy(), np.asarray(want.points))
     np.testing.assert_array_equal(got.pt_valid.numpy(), np.asarray(want.pt_valid))
     return got, want
@@ -499,7 +500,8 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
         trz.rasterize_nmap(pts_t, val_t.int(), torch.zeros(pts.shape), h, w)
     with pytest.raises(ValueError, match="multiple of 4"):
         trz.rasterize_cnt_r2(pts_t, val_t, h, 126)
-    targets = tt.generate_targets(*map(torch.from_numpy, octagon_labels()), H, W, max_points=P)
+    targets = tt.generate_targets(*map(torch.from_numpy, octagon_labels()), H, W, max_points=P,
+                                  dense_kp=False)
     fields = [np.ones((B, H, W), np.float32)] * 4
     fields, r2, cnt, tab, lut, cntp = port_ae_inputs(targets, fields)
     with pytest.raises(ValueError, match="cnt"):
@@ -547,7 +549,7 @@ def _card_points(dev, seed=0):
     border = border_clipped_labels()[0]
     polys[1, 5], n_verts[1, 5], cls_ids[1, 5] = border[0, 0], 4, 3
     t = tt.generate_targets(*(torch.from_numpy(a).to(dev) for a in (polys, n_verts, cls_ids)),
-                            H, W, max_points=P)
+                            H, W, max_points=P, dense_kp=False)
     return t
 
 

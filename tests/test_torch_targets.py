@@ -118,6 +118,13 @@ def test_sample_position_is_rounded_once(monkeypatch):
 
 
 def test_dense_kp_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tt.generate_targets(*map(torch.from_numpy, octagons(1, M, H, W, 0)), H, W,
-                            dense_kp=True)
+    """Named when the dense kp map raised; it is ported: the map equals the
+    JAX package's bit for bit, with ``dense_kp=True`` the default of both
+    (the other fields as ``assert_targets_match`` holds them)."""
+    arrays = octagons(2, M, H, W, 0)
+    got = tt.generate_targets(*map(torch.from_numpy, arrays), H, W, max_points=P)
+    want = jax.jit(lambda p, n, c: jt.generate_targets(p, n, c, H, W, max_points=P))(
+        *map(jnp.asarray, arrays))
+    assert got.kp_tgt.dtype == torch.float32
+    np.testing.assert_array_equal(got.kp_tgt.numpy(), np.asarray(want.kp_tgt))
+    assert float(got.kp_tgt.sum()) > 0
