@@ -146,6 +146,23 @@ Phases, one result line each; any failure raises and exits non-zero:
      ``Predictor`` (B7 backbone, P3-P8) in bf16 at 1536x1536, seeded
      weights, 2 requests at b1 through the full decode (K1 once a request),
      ms and peak memory.
+ 17. (run before 15) the last modules: (a) the learning capstone through
+     ``tools/overfit_demo.run`` (the JAX protocol: EfficientSeg-B0 bf16 at
+     256x512 on 4 synthetic 512x1024 frames, b2, Adam 3e-4, M=16, P=512) for
+     ``CAPSTONE_STEPS`` steps, then its evaluations (affinity, kmeans, int8):
+     ms/step, the loss at the first and last logged steps (falling), the
+     APs, and K2-K5 once a step and K1 once an eval batch; (b) the int8 path
+     at B3 bf16 512x1024 b8 on seeded weights: the int32 accumulators of the
+     first MBConv expand and project convs and of the U-Net input stage's
+     3x3 (K = 171) equal to the CPU's bit for bit on the same int8
+     operands (themselves equal), forward + decode ms int8 against bf16, and
+     the largest dense-head difference; (c) ``tools/export_model`` at B3
+     512x1024 b1 on the card: export seconds, artifact MB, the loaded program
+     equal to the live model and to a ``Predictor`` on the same seeded
+     weights, K1 once a call, ms per request program against ``Predictor``;
+     (d) ``decode_centers`` on the card against the CPU on a seeded map (all
+     five outputs equal); (e) ``tools/convert_polygon`` over (a)'s gtFine
+     tree.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -158,7 +175,8 @@ after: K1's from the serving slice, K2-K5's from the training slice, K6's
 from the full-resolution slice; phase 12's ranks count their own; phase 13
 counts K1 over each CLI run, phase 14 every kernel over each train run, and
 phase 16 K1 over each CLI run and the coef-8 requests and every kernel over
-its train run.
+its train run; phase 17 K1-K5 over the capstone and K1 over one call of the
+exported program.
 Phase 15, the last, stops the data workers' fork server and fails if a process this
 script started (its descendants, multiprocessing's resource tracker aside:
 it ends with this process) is still alive. The
@@ -197,9 +215,9 @@ from instance_segmentation_torch.device import nvidia_smi_name_power, require_cu
 from instance_segmentation_torch.evaluation import device_iou, eval_loop
 from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
-from instance_segmentation_torch.models import EfficientSegConfig, generate_anchors
+from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.models.efficientseg import INPUT_SIZES
-from instance_segmentation_torch.models.layers import BatchNorm
+from instance_segmentation_torch.models.layers import BatchNorm, int8_accumulate, quantize_int8
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops import kmeans as kmeans_ops
 from instance_segmentation_torch.ops.decode import DecodeConfig, decode_output
@@ -207,8 +225,8 @@ from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
 from instance_segmentation_torch.tools import (
-    fullres_demo, jpeg_digests, make_synthetic_cityscapes, make_synthetic_coco, multichip,
-    preprocess_cityscapes,
+    convert_polygon, export_model, fullres_demo, jpeg_digests, make_synthetic_cityscapes,
+    make_synthetic_coco, multichip, overfit_demo, preprocess_cityscapes,
 )
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
@@ -217,6 +235,7 @@ from instance_segmentation_torch.utils import image as image_utils
 from instance_segmentation_torch.utils import jpeg, png
 from instance_segmentation_torch.utils.checkpoint import CheckpointManager
 from instance_segmentation_torch.utils.logger import Logger
+from instance_segmentation_torch.weights import init_random
 import kernel_timing
 
 AFFINITY_SHAPE = (8, 20000, 96)          # B, K (kp_th), D (max_dets)
@@ -1969,6 +1988,195 @@ def phase_coco(dev: torch.device, smi: str) -> None:
     print(f"[16] phase 16 took {time.perf_counter() - start:.1f} s", flush=True)
 
 
+CAPSTONE_STEPS = 200        # phase 17 (a): about a minute of B0 steps at 256x512, b2
+INT8_SHAPE = (8, 512, 1024)  # phase 17 (b): B, H, W
+EXPORT_HW = (512, 1024)      # phase 17 (c): B3 at b1
+CENTERS_MAP = (256, 512, 4)  # phase 17 (d): H, W, classes
+
+
+def timed_ms(fn, runs: int = 5) -> list:
+    """Synchronised host ms (``timed``) of ``runs`` calls of ``fn`` after one
+    warm-up."""
+    fn()
+    store = []
+    for _ in range(runs):
+        timed(fn, store)()
+    return [1e3 * t for t in store]
+
+
+def phase_capstone(dev: torch.device, smi: str, base: Path) -> Path:
+    """Phase 17 (a): the learning capstone through its entry point, at the
+    JAX protocol but CAPSTONE_STEPS steps. Returns its data tree."""
+    counts = {**{name: 0 for name in TRAIN_KERNELS}, "affinity_assign": 0}
+    for name, module in TRAIN_KERNELS.items():
+        module.launches[name] = 0
+    affinity.launches = 0
+    res = overfit_demo.run(steps=CAPSTONE_STEPS, out=str(base / "overfit"), quant_ab=True,
+                           device=dev, log_every=100)
+    counts.update({name: module.launches[name] for name, module in TRAIN_KERNELS.items()})
+    counts["affinity_assign"] = affinity.launches
+    (s0, l0), (s1, l1) = res["losses"][0], res["losses"][-1]
+    check(np.isfinite(l0) and np.isfinite(l1) and l1 < l0,
+          f"[17] capstone: loss {l0} at step {s0}, {l1} at step {s1}: not falling")
+    for name in TRAIN_KERNELS:
+        check(counts[name] == CAPSTONE_STEPS,
+              f"[17] capstone: {name} launched {counts[name]} times in {CAPSTONE_STEPS} steps")
+    check(counts["affinity_assign"] == 6,
+          f"[17] capstone: K1 launched {counts['affinity_assign']} times in 3 evals of 2 batches")
+    ap = res["ap"]
+    print(f"[17] (a) capstone (tools/overfit_demo.py: B0 bf16, 256x512 from 4 synthetic 512x1024 "
+          f"frames, b2, Adam 3e-4, M=16, P=512) {CAPSTONE_STEPS} steps in {res['train_s']:.1f} s, "
+          f"{1e3 * res['train_s'] / CAPSTONE_STEPS:.2f} ms/step; loss {l0:.3f} at step {s0} -> "
+          f"{l1:.3f} at step {s1}; losses {[(s, round(v, 3)) for s, v in res['losses']]}; "
+          f"AP {ap['AP']:.4f} AP50 {ap['AP50']:.4f}, kmeans AP {ap['AP_kmeans']:.4f} AP50 "
+          f"{ap['AP50_kmeans']:.4f}, int8 AP {ap['AP_int8']:.4f} AP50 {ap['AP50_int8']:.4f} "
+          f"(dAP {ap['dAP_int8']:+.4f}); launches {counts}; [{smi}]", flush=True)
+    return base / "overfit" / "data"
+
+
+def phase_int8(dev: torch.device, smi: str) -> None:
+    """Phase 17 (b): EfficientSeg-B3 at 512x1024 b8 through the int8 path
+    against bf16 on seeded weights; three convs' int32 accumulators held
+    bitwise against the CPU's on the same int8 operands."""
+    b, h, w = INT8_SHAPE
+    models = {}
+    for quant in ("none", "int8"):
+        m = EfficientSeg(EfficientSegConfig(num_classes=8, compound_coef=3,
+                                            compute_dtype=torch.bfloat16, quant=quant))
+        init_random(m, torch.Generator().manual_seed(0))
+        models[quant] = m.to(dev).eval()
+    frames = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+    anchors = torch.tensor(generate_anchors(
+        h, w, pyramid_levels=models["none"].cfg.pyramid_levels,
+        anchor_scale=models["none"].cfg.anchor_scale), device=dev)
+    mods = dict(models["int8"].named_modules())
+    # the first block's expand and project convs (1x1) and the U-Net input
+    # stage's 3x3 (K = 171)
+    block = next(n for n in mods if n.endswith("._expand_conv")).rsplit(".", 1)[0]
+    held_convs = (f"{block}._expand_conv", f"{block}._project_conv",
+                  "kp_header.double_conv_input.0")
+    inputs = {}
+    hooks = [mods[n].register_forward_pre_hook(
+        lambda mod, args, n=n: inputs.setdefault(n, args[0].clone())) for n in held_convs]
+    with torch.inference_mode():
+        heads_q = models["int8"](frames)
+        heads_f = models["none"](frames)
+    for hook in hooks:
+        hook.remove()
+    held = []
+    for n in held_convs:
+        conv = getattr(mods[n], "conv", mods[n])      # a Conv2dSame's inner conv
+        x_q, _, w_q, _ = quantize_int8(inputs[n], conv.weight)
+        cx_q, _, cw_q, _ = quantize_int8(inputs[n].cpu(), conv.weight.cpu())
+        check(torch.equal(x_q.cpu(), cx_q) and torch.equal(w_q.cpu(), cw_q),
+              f"[17] int8 {n}: the card's int8 operands differ from the CPU's")
+        acc = int8_accumulate(x_q, w_q, conv.padding[0])
+        want = int8_accumulate(cx_q, cw_q, conv.padding[0])
+        check(torch.equal(acc.cpu(), want), f"[17] int8 {n}: int32 accumulators differ")
+        k = w_q.shape[1] * w_q.shape[2] * w_q.shape[3]
+        held.append(f"{n} {tuple(acc.shape)} K={k} max|acc| {int(acc.abs().max())}")
+    diff = {name: float((q.float() - f.float()).abs().max() / f.float().abs().max())
+            for name, q, f in zip(("kp", "ae", "tan"), heads_q[:3], heads_f[:3])}
+    ms = {}
+    for quant, m in models.items():
+        with torch.inference_mode():
+            ms[quant] = timed_ms(lambda: decode.forward_and_decode(
+                m, frames, anchors, 2 * h, 2 * w, 2.0, DecodeConfig()))
+    print(f"[17] (b) int8 path, B3 {h}x{w} b{b}, seeded weights: int32 accumulators equal to the "
+          f"CPU's bit for bit ({'; '.join(held)}); forward + decode ms int8 "
+          f"{[round(t, 3) for t in ms['int8']]} (median {np.median(ms['int8']):.3f}) vs bf16 "
+          f"{[round(t, 3) for t in ms['none']]} (median {np.median(ms['none']):.3f}); largest "
+          f"head difference int8 vs bf16 (of max|bf16|) {diff}; [{smi}]", flush=True)
+    del models, heads_q, heads_f, inputs
+
+
+def phase_export(dev: torch.device, smi: str, base: Path) -> None:
+    """Phase 17 (c): B3 at 512x1024 b1 exported on the card, saved, loaded,
+    verified exactly, K1 launched once a call; request ms beside the
+    Predictor's on the same seeded weights (whose outputs it must equal)."""
+    t0 = time.perf_counter()
+    h, w = EXPORT_HW
+    program, live, example = export_model.build_export(3, (h, w), 1, 8, device=dev)
+    export_s = time.perf_counter() - t0
+    path = base / "b3.pt2"
+    torch.export.save(program, str(path))
+    loaded = export_model.load(str(path))
+    export_model.verify(loaded, live, example)
+    run = loaded.module()
+    affinity.launches = 0
+    with torch.no_grad():
+        got = run(example)
+    torch.cuda.synchronize()
+    k1 = affinity.launches
+    check(k1 == 1, f"[17] export: K1 launched {k1} times in one call of the program")
+    pred = Predictor(EfficientSegConfig(num_classes=8, compound_coef=3,
+                                        compute_dtype=torch.bfloat16),
+                     DecodeConfig(), torch.Generator().manual_seed(0), dev,
+                     orig_hw=(2 * h, 2 * w), scale=2.0)
+    dets = pred.predict(example)
+    same = all(torch.equal(g, w) for g, w in zip(got, (
+        dets.classes, dets.scores, dets.centers, dets.polygons, dets.poly_len, dets.obj_valid)))
+    check(same, "[17] export: the program's outputs differ from the Predictor's")
+    with torch.no_grad():
+        prog_ms = timed_ms(lambda: run(example), runs=9)
+    pred_ms = timed_ms(lambda: pred.predict(example), runs=9)
+    print(f"[17] (c) export (tools/export_model.py) B3 {h}x{w} b1 on the card: torch.export "
+          f"{export_s:.1f} s, artifact {path.stat().st_size / 1e6:.1f} MB; loaded program equal "
+          f"to the live model exactly and to the Predictor; K1 launches in one call {k1}; ms "
+          f"per request loaded program {[round(t, 3) for t in prog_ms]} (median "
+          f"{np.median(prog_ms):.3f}) vs Predictor {[round(t, 3) for t in pred_ms]} (median "
+          f"{np.median(pred_ms):.3f}); [{smi}]", flush=True)
+
+
+def phase_decode_centers(dev: torch.device) -> None:
+    """Phase 17 (d): decode_centers on the card against the CPU."""
+    h, w, n_cls = CENTERS_MAP
+    rng = np.random.default_rng(6)
+    conf = rng.uniform(-0.2, 1.0, (h, w)).astype(np.float32)
+    conf[rng.uniform(size=(h, w)) < 0.3] = 0.0
+    maps = (conf, rng.integers(0, n_cls, (h, w)).astype(np.int32),
+            rng.uniform(2, 40, (h, w, 2)).astype(np.float32))
+    card, host = ([t.cpu() for t in decode.decode_centers(
+        *(torch.from_numpy(a).to(d) for a in maps), num_centers=2000, iou_th=0.5, max_out=96)]
+        for d in (dev, torch.device("cpu")))
+    for name, g, c in zip(("centers", "classes", "confs", "whs", "valid"), card, host):
+        check(torch.equal(g, c), f"[17] decode_centers: {name} card != CPU")
+    print(f"[17] (d) decode_centers on a seeded {h}x{w} map, 2000 peaks, {n_cls} classes: card "
+          f"equal to CPU on all five outputs, {int(host[4].sum())} centres kept",
+          flush=True)
+
+
+def phase_convert_polygon(root: Path) -> None:
+    """Phase 17 (e): the GT cleanup tool over the capstone's gtFine tree."""
+    gt = root / "gtFine"
+    before = sum(len(json.loads(p.read_text())["objects"])
+                 for p in gt.rglob("*_gtFine_polygons.json"))
+    t0 = time.perf_counter()
+    written = convert_polygon.convert_tree(str(gt))
+    seconds = time.perf_counter() - t0
+    kept = sum(len(json.loads(Path(p).read_text())["objects"]) for p in written)
+    check(len(written) == 8 and 0 < kept <= before,
+          f"[17] convert_polygon: {len(written)} files, {kept} of {before} objects")
+    print(f"[17] (e) convert_polygon over the capstone's gtFine tree: {len(written)} files, "
+          f"{kept} of {before} objects kept, {seconds:.2f} s", flush=True)
+
+
+def phase_last_modules(dev: torch.device, smi: str) -> None:
+    """Phase 17: the capstone, int8, export, decode_centers, convert_polygon."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        base = Path(tmp)
+        root = phase_capstone(dev, smi, base)
+        gc.collect()
+        phase_int8(dev, smi)
+        gc.collect()
+        phase_export(dev, smi, base)
+        phase_decode_centers(dev)
+        phase_convert_polygon(root)
+    print(f"[17] phase 17 took {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def descendants() -> list:
     """(pid, command) of every live process below this one, from ``/proc``."""
     parent, command = {}, {}
@@ -2043,6 +2251,7 @@ def main() -> None:
     phase_eval_slice(dev, smi)
     phase_train_cli(dev, smi)
     phase_coco(dev, smi)
+    phase_last_modules(dev, smi)
     phase_processes()
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))

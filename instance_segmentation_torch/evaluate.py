@@ -11,7 +11,8 @@ it), at ``tpu.input_size`` (512x1024 without it). Without a checkpoint the
 weights are the seeded initialisation of ``weights.init_random`` from
 ``seed``, which is not the JAX package's ``PRNGKey(seed)`` initialisation.
 Runs on the CUDA card (PNG frames through the C row unfilter) unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``tpu.quant: int8`` evaluates through the int8
+path (``models/layers.int8_conv2d``), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -49,15 +50,14 @@ def pick_device(name: str) -> torch.device:
 
 def seeded_model(cfg: Config, num_classes: int, device: torch.device) -> EfficientSeg:
     """EfficientSeg of ``cfg.compound_coef`` in bf16 with the seeded
-    initialisation of ``cfg.seed``, in eval mode on ``device``."""
+    initialisation of ``cfg.seed``, in eval mode on ``device``; with
+    ``tpu.quant: int8`` its dense convs take the int8 path (the JAX
+    ``evaluate.py:70``)."""
     tpu_cfg = cfg.get("tpu")
     quant = (tpu_cfg.get("quant") or "none") if tpu_cfg else "none"
-    if quant != "none":
-        raise NotImplementedError(f"quant={quant!r} (the int8 path) is not ported "
-                                  "(ROADMAP Queue 1 item 13)")
     model = EfficientSeg(EfficientSegConfig(num_classes=num_classes,
                                             compound_coef=cfg.compound_coef,
-                                            compute_dtype=torch.bfloat16))
+                                            compute_dtype=torch.bfloat16, quant=quant))
     init_random(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device).eval()
 

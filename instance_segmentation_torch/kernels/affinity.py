@@ -11,8 +11,12 @@ so a NaN can come from a pair outside its box: the expression's own rules,
 op by op (under ``jax.jit`` XLA rewrites the product into a select, which
 scores an outside pair 0).
 
-``affinity_assign`` runs the CUDA kernel on CUDA tensors and the plain
-PyTorch version on CPU tensors; any other device raises. ``launches``
+``affinity_assign`` checks its inputs and calls the custom op
+``torch.ops.iseg.affinity_assign``, registered here: its CUDA implementation
+launches the kernel, its CPU implementation runs the plain PyTorch version,
+and its fake implementation gives the output shapes, so ``torch.export``
+captures the call as one node (importing this module registers the op, as
+loading an exported program needs). Any other device raises. ``launches``
 counts kernel launches.
 """
 
@@ -98,8 +102,9 @@ def _launch(kp_rc, emb, sig, c_emb, boxes, det_valid):
     if any(t.data_ptr() % 8 for t in (kp_rc, emb, sig)):
         raise ValueError("affinity kernel reads kp_rc, emb and sig as 8-byte pairs: "
                          "they must be 8-byte aligned")
-    out = torch.empty((2, B, K), dtype=torch.int32, device=kp_rc.device)   # one allocation
-    assign, best = out[0], out[1].view(torch.float32)
+    # two allocations: a custom op's outputs may not alias one another
+    assign = torch.empty((B, K), dtype=torch.int32, device=kp_rc.device)
+    best = torch.empty((B, K), dtype=torch.float32, device=kp_rc.device)
     if B * K == 0:
         return assign, best
     err = build.launch(_kernel(), kp_rc.device, kp_rc.data_ptr(), emb.data_ptr(),
@@ -111,14 +116,32 @@ def _launch(kp_rc, emb, sig, c_emb, boxes, det_valid):
     return assign, best
 
 
+@torch.library.custom_op("iseg::affinity_assign", mutates_args=(), device_types="cpu")
+def _affinity_op(kp_rc: torch.Tensor, emb: torch.Tensor, sig: torch.Tensor,
+                 c_emb: torch.Tensor, boxes: torch.Tensor,
+                 det_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(kp_rc, emb, sig, c_emb, boxes, det_valid)
+    return affinity_assign_plain(kp_rc, emb, sig, c_emb, boxes, det_valid)
+
+
+@_affinity_op.register_kernel("cuda")
+def _affinity_op_cuda(kp_rc, emb, sig, c_emb, boxes, det_valid):
+    return _launch(kp_rc, emb, sig, c_emb, boxes, det_valid)
+
+
+@_affinity_op.register_fake
+def _affinity_op_fake(kp_rc, emb, sig, c_emb, boxes, det_valid):
+    shape = kp_rc.shape[:2]
+    return kp_rc.new_empty(shape, dtype=torch.int32), kp_rc.new_empty(shape)
+
+
 def affinity_assign(kp_rc: torch.Tensor, emb: torch.Tensor, sig: torch.Tensor,
                     c_emb: torch.Tensor, boxes: torch.Tensor,
                     det_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grouping: (assign [B,K] int32, best [B,K] float32). CUDA tensors run
-    kernel K1; CPU tensors run ``affinity_assign_plain``."""
-    if kp_rc.device.type == "cuda":
-        return _launch(kp_rc, emb, sig, c_emb, boxes, det_valid)
-    if kp_rc.device.type == "cpu":
-        _check(kp_rc, emb, sig, c_emb, boxes, det_valid)
-        return affinity_assign_plain(kp_rc, emb, sig, c_emb, boxes, det_valid)
-    raise ValueError(f"affinity_assign runs on cuda or cpu tensors, not {kp_rc.device}")
+    """Grouping: (assign [B,K] int32, best [B,K] float32) by the op
+    ``iseg::affinity_assign``. CUDA tensors run kernel K1; CPU tensors run
+    ``affinity_assign_plain``."""
+    if kp_rc.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"affinity_assign runs on cuda or cpu tensors, not {kp_rc.device}")
+    _check(kp_rc, emb, sig, c_emb, boxes, det_valid)
+    return torch.ops.iseg.affinity_assign(kp_rc, emb, sig, c_emb, boxes, det_valid)

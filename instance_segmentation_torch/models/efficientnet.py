@@ -10,7 +10,9 @@ Returns the five snapshots [P1..P5]: the activation just before each
 stride-2 block, and the final block output. In training, block ``idx`` of
 ``total`` applies drop-connect at rate ``drop_connect_rate * idx / total`` on
 its identity skip, drawn from the backbone's ``generator`` (torch's default
-generator when None).
+generator when None). With ``quant`` the MBConv expand and project convs
+take the int8 path outside training (reference ``quant``; SE, depthwise and
+stem convs stay in the compute dtype).
 """
 
 from __future__ import annotations
@@ -109,13 +111,14 @@ class MBConv(nn.Module):
     """Mobile inverted bottleneck: expand -> depthwise -> SE -> project, with
     the identity skip on same-shape blocks (drop-connect on it in training)."""
 
-    def __init__(self, a: BlockArgs, drop_rate: float = 0.0):
+    def __init__(self, a: BlockArgs, drop_rate: float = 0.0, quant: bool = False):
         super().__init__()
         self.args = a
         self.drop_rate = drop_rate
         expanded = a.input_filters * a.expand_ratio
         if a.expand_ratio != 1:
-            self._expand_conv = Conv2dSame(a.input_filters, expanded, 1, bias=False)
+            self._expand_conv = Conv2dSame(a.input_filters, expanded, 1, bias=False,
+                                           quant=quant)
             self._bn0 = BatchNorm(expanded)
         self._depthwise_conv = depthwise_conv(expanded, a.kernel_size, a.stride)
         self._bn1 = BatchNorm(expanded)
@@ -124,7 +127,8 @@ class MBConv(nn.Module):
             squeezed = max(1, int(a.input_filters * a.se_ratio))
             self._se_reduce = Conv2dSame(expanded, squeezed, 1)
             self._se_expand = Conv2dSame(squeezed, expanded, 1)
-        self._project_conv = Conv2dSame(expanded, a.output_filters, 1, bias=False)
+        self._project_conv = Conv2dSame(expanded, a.output_filters, 1, bias=False,
+                                        quant=quant)
         self._bn2 = BatchNorm(a.output_filters)
 
     def forward(self, x: torch.Tensor,
@@ -149,13 +153,14 @@ class MBConv(nn.Module):
 class EfficientNetFeatures(nn.Module):
     """Backbone producing the five pyramid snapshots [P1..P5]."""
 
-    def __init__(self, variant: int = 0, drop_connect_rate: float = 0.2):
+    def __init__(self, variant: int = 0, drop_connect_rate: float = 0.2,
+                 quant: bool = False):
         super().__init__()
         stem = stem_filters(variant)
         self._conv_stem = Conv2dSame(3, stem, 3, stride=2, bias=False)
         self._bn0 = BatchNorm(stem)
         flat = flat_blocks(variant)
-        self._blocks = nn.ModuleList(MBConv(b, drop_connect_rate * idx / len(flat))
+        self._blocks = nn.ModuleList(MBConv(b, drop_connect_rate * idx / len(flat), quant)
                                      for idx, b in enumerate(flat))
         self.generator: Optional[torch.Generator] = None
 

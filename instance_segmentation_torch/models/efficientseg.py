@@ -27,6 +27,10 @@ backbone and of the U-Net decoder (the two modules the reference wraps in
 batch-norm running statistics alone and replays the drop-connect masks of
 the forward (the backbone generator is rewound for it), so a step with
 ``remat`` computes what a step without it computes.
+
+``cfg.quant == "int8"`` (reference ``quant``) runs the MBConv expand and
+project convs and the U-Net's 3x3 convs through the int8 path outside
+training (``layers.int8_conv2d``), with the float model's parameters.
 """
 
 from __future__ import annotations
@@ -71,10 +75,13 @@ class EfficientSegConfig:
     std: Tuple[float, ...] = DEFAULT_STD
     drop_connect_rate: float = 0.2      # backbone stochastic depth, training only
     remat: bool = False                 # recompute backbone and decoder activations in backward
+    quant: str = "none"                 # "none" | "int8": int8 dense convs outside training
 
     def __post_init__(self):
         if not 0 <= self.compound_coef <= 8:
             raise ValueError(f"compound_coef {self.compound_coef}: 0..8")
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"quant {self.quant!r}: 'none' or 'int8'")
 
     @property
     def num_anchors(self) -> int:
@@ -136,15 +143,16 @@ class EfficientSeg(nn.Module):
         chans = feature_channels(variant)
         fpn_ch = FPN_FILTERS[coef]
         levels = PYRAMID_LEVELS[coef]
+        quant = cfg.quant == "int8"
         self.backbone_net = nn.ModuleDict(
-            {"model": EfficientNetFeatures(variant, cfg.drop_connect_rate)})
+            {"model": EfficientNetFeatures(variant, cfg.drop_connect_rate, quant)})
         self.bifpn = BiFPN(fpn_ch, chans[2:5], FPN_REPEATS[coef], attention=coef < 6,
                            use_p8=coef > 7)
         self.regressor = Regressor(fpn_ch, cfg.num_anchors, BOX_CLASS_REPEATS[coef],
                                    levels)
         self.classifier = Classifier(fpn_ch, cfg.num_anchors, cfg.num_classes,
                                      BOX_CLASS_REPEATS[coef], levels)
-        self.kp_header = UNetDecoder(chans)
+        self.kp_header = UNetDecoder(chans, quant=quant)
         self.register_buffer("pixel_mean", torch.tensor(cfg.mean) * 255.0,
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.std) * 255.0,

@@ -19,6 +19,13 @@ running statistics in eval. Given a process group (``set_batchnorm_group``),
 its training statistics are those of the global batch over the group's ranks,
 as the reference's batch statistics are global reductions over a batch
 sharded across devices.
+
+The int8 inference path (reference ``_Int8Conv``): a dense conv made with
+``quant=True`` computes, outside training, an int8 x int8 -> int32 conv
+from float32 weights quantized per output channel and the input quantized
+per tensor, then dequantizes (``int8_conv2d``). Its parameters are those
+of the float conv, held in float32 (``cast_convs`` leaves them), so a float
+checkpoint or JAX tree loads unchanged.
 """
 
 from __future__ import annotations
@@ -50,10 +57,80 @@ def _cast(t, dtype: torch.dtype):
     return None if t is None else t.to(dtype)
 
 
+def quantize_int8(x: torch.Tensor, weight: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference ``_Int8Conv``'s quantization, op for op: (x_q int8,
+    s_x [] float32, w_q int8 [O, I, kh, kw], s_w [O] float32) with
+    ``s_w = max(max|W| over (I, kh, kw), 1e-8) / 127``, ``w_q = round(W /
+    s_w)``, ``s_x = max(max|x|, 1e-8) / 127`` and ``x_q = clip(round(x /
+    s_x), -127, 127)``; rounding half to even, as ``jnp.round``."""
+    w = weight.float()
+    s_w = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-8) / 127.0
+    w_q = torch.round(w / s_w[:, None, None, None]).to(torch.int8)
+    xf = x.float()
+    s_x = torch.clamp_min(xf.abs().amax(), 1e-8) / 127.0
+    x_q = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+    return x_q, s_x, w_q, s_w
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int8_accumulate(x_q: torch.Tensor, w_q: torch.Tensor, padding: int) -> torch.Tensor:
+    """The exact int32 stride-1 conv of int8 x_q [B, C, H, W] and w_q [O, C,
+    k, k] with ``padding`` zeros on every side -> int32 [B, O, H', W']: an
+    im2col of shifted slices of the NHWC input (none for a 1x1) and one
+    ``torch._int_mm`` (cuBLASLt on the card, an exact int32 product on the
+    CPU). Its shape rules (more than 16 rows, K and N multiples of 8) are
+    met by zero padding, which keeps the sums exact."""
+    if x_q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"int8 conv runs on cuda or cpu tensors, not {x_q.device}")
+    B, C, H, W = x_q.shape
+    O, _, kh, kw = w_q.shape
+    ho, wo = H + 2 * padding - kh + 1, W + 2 * padding - kw + 1
+    K, N = kh * kw * C, O
+    Kp, Np, M = _round_up(K, 8), _round_up(N, 8), B * ho * wo
+    xh = x_q.permute(0, 2, 3, 1)
+    if padding:
+        xh = F.pad(xh, (0, 0, padding, padding, padding, padding))
+    cols = [xh[:, i:i + ho, j:j + wo, :] for i in range(kh) for j in range(kw)]
+    if Kp > K:
+        cols.append(xh.new_zeros((B, ho, wo, Kp - K)))
+    a = torch.cat(cols, dim=-1).reshape(M, Kp)
+    if M <= 16:
+        a = torch.cat([a, a.new_zeros((17 - M, Kp))])
+    wm = F.pad(w_q.permute(0, 2, 3, 1).reshape(O, K), (0, Kp - K, 0, Np - N))
+    acc = torch._int_mm(a, wm.t())                                    # [M', Np] int32
+    return acc[:M, :N].reshape(B, ho, wo, N).permute(0, 3, 1, 2)
+
+
+def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                padding: int) -> torch.Tensor:
+    """The reference ``_Int8Conv`` (stride 1): ``quantize_int8``, the exact
+    int32 conv, then ``acc * (s_x * s_w) + bias`` in float32, cast to x's
+    dtype."""
+    x_q, s_x, w_q, s_w = quantize_int8(x, weight)
+    y = int8_accumulate(x_q, w_q, padding).float() * (s_x * s_w)[:, None, None]
+    if bias is not None:
+        y = y + bias.float()[:, None, None]
+    return y.to(x.dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose weight and bias are cast to the input dtype."""
+    """``nn.Conv2d`` whose weight and bias are cast to the input dtype. With
+    ``quant=True`` (a dense stride-1 conv) it runs ``int8_conv2d`` outside
+    training."""
+
+    def __init__(self, *args, quant: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        if quant and (self.groups != 1 or self.stride != (1, 1)):
+            raise ValueError("the int8 path takes dense stride-1 convs only")
+        self.quant = quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant and not self.training:
+            return int8_conv2d(x, self.weight, self.bias, self.padding[0])
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
@@ -71,10 +148,10 @@ class Conv2dSame(nn.Module):
     torch state-dict names (``<name>.conv.weight``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, groups: int = 1, bias: bool = True):
+                 stride: int = 1, groups: int = 1, bias: bool = True, quant: bool = False):
         super().__init__()
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding=0, groups=groups, bias=bias)
+                           padding=0, groups=groups, bias=bias, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
@@ -84,6 +161,8 @@ class Conv2dSame(nn.Module):
         if top != bottom or left != right:
             x = F.pad(x, (left, right, top, bottom))
             top = left = 0
+        if conv.quant and not conv.training:
+            return int8_conv2d(x, conv.weight, conv.bias, top)
         return F.conv2d(x, conv.weight.to(x.dtype), _cast(conv.bias, x.dtype), s,
                         (top, left), 1, conv.groups)
 
@@ -238,7 +317,8 @@ def drop_connect(x: torch.Tensor, rate: float,
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> None:
     """Hold every conv / transposed-conv weight and bias in ``dtype``;
-    batch norm and fusion weights stay float32."""
+    batch norm, fusion weights and the int8 path's convs (quantized from
+    float32, as the reference's) stay float32."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and not getattr(m, "quant", False):
             m.to(dtype)

@@ -9,6 +9,8 @@ then 1x1 heads cast to float32:
     kp: 1 channel, ae: 4 channels, tan: 2 channels.
 
 Batch norm here uses the torch-default eps 1e-5 and flax momentum 0.9.
+With ``quant`` the 3x3 convs of every double conv take the int8 path
+outside training (reference ``quant``); transposed convs and heads do not.
 Attribute names follow the reference torch state dict (``up_conv1``,
 ``double_conv1.0`` ...).
 """
@@ -27,29 +29,29 @@ from instance_segmentation_torch.models.layers import (
 HEADS: Tuple[Tuple[str, int], ...] = (("kp", 1), ("ae", 4), ("tan", 2))
 
 
-def _double_conv(in_channels: int, channels: int) -> nn.Sequential:
+def _double_conv(in_channels: int, channels: int, quant: bool = False) -> nn.Sequential:
     """Two (3x3 conv, BN, ReLU); keys ``.0/.3`` conv and ``.1/.4`` BN."""
     return nn.Sequential(
-        Conv2d(in_channels, channels, 3, padding=1),
+        Conv2d(in_channels, channels, 3, padding=1, quant=quant),
         BatchNorm(channels, eps=BN_EPS_UNET, momentum=BN_MOMENTUM_UNET), nn.ReLU(),
-        Conv2d(channels, channels, 3, padding=1),
+        Conv2d(channels, channels, 3, padding=1, quant=quant),
         BatchNorm(channels, eps=BN_EPS_UNET, momentum=BN_MOMENTUM_UNET), nn.ReLU())
 
 
 class UNetDecoder(nn.Module):
     def __init__(self, block_channels: List[int], image_channels: int = 3,
                  stage_channels: Tuple[int, ...] = (256, 128, 64, 32),
-                 input_stage_channels: int = 16):
+                 input_stage_channels: int = 16, quant: bool = False):
         super().__init__()
         prev = block_channels[-1]
         for i, ch in enumerate(stage_channels, start=1):
             skip = block_channels[-(i + 1)]
             setattr(self, f"up_conv{i}", ConvTranspose2d(prev, ch, 2, stride=2))
-            setattr(self, f"double_conv{i}", _double_conv(ch + skip, ch))
+            setattr(self, f"double_conv{i}", _double_conv(ch + skip, ch, quant))
             prev = ch
         ic = input_stage_channels
         self.up_conv_input = ConvTranspose2d(prev, ic, 2, stride=2)
-        self.double_conv_input = _double_conv(ic + image_channels, ic)
+        self.double_conv_input = _double_conv(ic + image_channels, ic, quant)
         for name, ch in HEADS:
             setattr(self, name, Conv2d(ic, ch, 1))
         self.num_stages = len(stage_channels)

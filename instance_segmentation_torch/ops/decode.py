@@ -39,6 +39,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch._higher_order_ops.while_loop import while_loop_op
+
 from instance_segmentation_torch.kernels.affinity import affinity_assign
 from instance_segmentation_torch.ops.kmeans import kmeans
 from instance_segmentation_torch.ops.geometry import fma, point_in_polygon, rasterize_polygon
@@ -119,25 +121,51 @@ def _iou_xyxy(b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-8)
 
 
+def _nms_unsettled(keep, prev, sweeps, valid, sup):
+    """``leader_nms``'s loop condition: the last sweep changed ``keep`` and
+    fewer than K sweeps ran."""
+    return (sweeps < sup.shape[-1]) & (keep != prev).any()
+
+
+def _nms_sweep(keep, prev, sweeps, valid, sup):
+    """One sweep of ``leader_nms``'s fixpoint."""
+    return valid & ~(keep[..., :, None] & sup).any(dim=-2), keep.clone(), sweeps + 1
+
+
 def leader_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float,
                max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS over rank-sorted boxes [..., K, 4], as the fixpoint of
         keep_i <- valid_i & not exists j < i: keep_j & iou_ij > th
-    (unique, reached within K sweeps; in practice 2-6). Returns the first
-    ``max_out`` kept indices (-1 where fewer were kept) and their validity."""
+    (unique, reached within K sweeps; in practice 2-6). The sweeps run in
+    ``torch.while_loop``'s operator, as the JAX decode's ``lax.while_loop``,
+    so ``torch.export`` captures the loop; evaluated eagerly, it reads its
+    condition on the host once a sweep. Returns the first ``max_out`` kept
+    indices (-1 where fewer were kept) and their validity."""
     K = boxes.shape[-2]
     rank = torch.arange(K, device=boxes.device)
     # sup[..., j, i]: keeping j suppresses i (strictly lower rank suppresses)
     sup = (_iou_xyxy(boxes) > iou_th) & (rank[:, None] < rank[None, :])
-    keep, prev = valid, ~valid
-    for _ in range(K):
-        if not bool((keep != prev).any()):
-            break
-        prev, keep = keep, valid & ~(keep[..., :, None] & sup).any(dim=-2)
+    sweeps = torch.zeros((), dtype=torch.int64, device=boxes.device)
+    keep, _, _ = while_loop_op(_nms_unsettled, _nms_sweep,
+                               (valid.clone(), ~valid, sweeps), (valid, sup))
     order = torch.argsort(torch.where(keep, rank, K + rank), dim=-1)
     idx = order[..., :max_out]
     ok = keep.gather(-1, idx)
     return torch.where(ok, idx, torch.full_like(idx, -1)), ok
+
+
+def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float) -> torch.Tensor:
+    """Greedy NMS over score-sorted [K, 4] boxes -> keep mask [K], by K
+    sequential steps (strict >): the sequential oracle ``leader_nms`` is
+    held to (JAX ``greedy_nms``)."""
+    K = boxes.shape[0]
+    iou = _iou_xyxy(boxes)
+    rank = torch.arange(K, device=boxes.device)
+    keep = torch.zeros(K, dtype=torch.bool, device=boxes.device)
+    keep[:1] = valid[:1]
+    for i in range(1, K):
+        keep[i] = valid[i] & ~((iou[i] > iou_th) & keep & (rank < i)).any()
+    return keep
 
 
 def decode_boxes(classification: torch.Tensor, regression: torch.Tensor,
@@ -200,14 +228,18 @@ def _exact_k_mask(u: torch.Tensor, k: int) -> torch.Tensor:
 
 def exact_topk_indices(flat: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of [B, N] float32 with the reference's tie rule ->
-    (values [B, k], indices [B, k] ascending)."""
+    (values [B, k], indices [B, k] ascending). The mask is compacted by its
+    running count, at fixed shapes; a device-side assert checks that it
+    selected k in every row (no host sync)."""
     B, N = flat.shape
     k = min(k, N)
     mask = _exact_k_mask(_monotonic_u32(flat), k)
-    cols = mask.nonzero()[:, 1]
-    if cols.numel() != B * k:
-        raise RuntimeError(f"exact-k mask selected {cols.numel()} of {B * k}")
-    idx = cols.view(B, k)
+    slot = torch.cumsum(mask, dim=1) - 1                               # [B, N]
+    torch._assert_async((slot[:, -1] == k - 1).all(), "exact-k mask did not select k")
+    slot = torch.where(mask, slot, torch.full_like(slot, k))           # k: a dropped slot
+    cols = torch.arange(N, device=flat.device).expand(B, N)
+    idx = torch.zeros((B, k + 1), dtype=torch.int64, device=flat.device)
+    idx = idx.scatter(1, slot, cols)[:, :k]
     return flat.gather(1, idx), idx
 
 
@@ -222,6 +254,12 @@ def select_peaks_batch(hm: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Te
     hmax = F.max_pool2d(F.pad(masked[:, None], (1, 1, 1, 1)), 3, stride=1)[:, 0]
     peak = hmax.reshape(B, -1).gather(1, top_i) == top_v
     return top_i, peak
+
+
+def select_peaks(hm: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-image ``select_peaks_batch``: [H, W] -> ([k], [k])."""
+    idx, ok = select_peaks_batch(hm[None], k)
+    return idx[0], ok[0]
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +394,38 @@ def render_masks(dets: Detections, h: int, w: int, max_masks: int | None = None
         polys, valid = polys[:, :max_masks], valid[:, :max_masks]
     masks = rasterize_polygon(polys.flip(-1), h, w)              # (x, y) -> (row, col)
     return masks & valid[..., None, None]
+
+
+def decode_centers(conf_hm: torch.Tensor, cls_hm: torch.Tensor, wh_map: torch.Tensor,
+                   num_centers: int, iou_th: float = 0.5, max_out: int = 96):
+    """Centre-heatmap detection decode (JAX ``decode_centers``; the live path
+    does not call it): the top ``num_centers`` peaks of ``conf_hm`` with a
+    confidence above 0, each with its class and (h, w) size, then
+    class-aware NMS on the implied boxes (class offset ``(H + W) * 2``).
+
+    conf_hm [H, W] float32, cls_hm [H, W] int, wh_map [H, W, 2] ((h, w) per
+    pixel). Returns (centers_rc [M, 2] int32, classes [M] int32, confs [M],
+    whs [M, 2], valid [M]), M = min(num_centers, max_out)."""
+    H, W = conf_hm.shape
+    flat_idx, ok = select_peaks(conf_hm, num_centers)
+    rr = torch.div(flat_idx, W, rounding_mode="floor").float()
+    cc = (flat_idx % W).float()
+    conf = conf_hm.reshape(-1)[flat_idx]
+    ok = ok & (conf > 0)
+    cls = cls_hm.reshape(-1)[flat_idx].int()
+    wh = wh_map.reshape(-1, 2)[flat_idx]                              # [K, 2] (h, w)
+
+    boxes = torch.stack([cc - wh[:, 1] / 2, rr - wh[:, 0] / 2,
+                         cc + wh[:, 1] / 2, rr + wh[:, 0] / 2], dim=-1)
+    order = torch.argsort(-torch.where(ok, conf, torch.full_like(conf, -math.inf)),
+                          stable=True)
+    boxes_s, ok_s = boxes[order], ok[order]
+    off = (cls[order].float() * (H + W) * 2.0)[:, None]
+    shift = torch.tensor([1.0, 0.0, 1.0, 0.0], device=off.device)
+    keep_idx, keep_ok = leader_nms(boxes_s + off * shift, ok_s, iou_th, max_out)
+    sel = order[keep_idx.clamp(0, boxes_s.shape[0] - 1)]
+    centers = torch.stack([rr[sel], cc[sel]], dim=-1).int()
+    return centers, cls[sel], conf[sel], wh[sel], keep_ok
 
 
 # ---------------------------------------------------------------------------

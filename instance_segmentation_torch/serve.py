@@ -22,7 +22,8 @@ class Predictor:
     """``weights`` is the JAX package's ``{"params", "batch_stats"}`` tree
     (numpy leaves), or a CPU ``torch.Generator`` for seeded untrained
     weights. Frames are [B, H, W, 3] uint8 at the model input size
-    ``orig_hw / scale``; detections come back at ``orig_hw``."""
+    ``orig_hw / scale``; detections come back at ``orig_hw``. ``cfg.quant``
+    "int8" serves through the int8 path."""
 
     def __init__(self, cfg: EfficientSegConfig, decode_cfg: DecodeConfig,
                  weights: Union[Mapping, torch.Generator], device: torch.device,
