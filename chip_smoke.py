@@ -163,6 +163,29 @@ Phases, one result line each; any failure raises and exits non-zero:
      (d) ``decode_centers`` on the card against the CPU on a seeded map (all
      five outputs equal); (e) ``tools/convert_polygon`` over (a)'s gtFine
      tree.
+ 18. (run before 15, in a process of its own so that its profiler windows
+     come early in a process) the profilers of the serving and from-disk
+     training paths, through their entry points, at EfficientSeg-B3 bf16
+     512x1024 on seeded weights: (a) ``tools/profile_infer`` at b1 and b8,
+     bf16 and int8: forward, decode and composed ms (median and highest
+     supported percentile), img/s, device kernels and launches per request,
+     K1 once a decode (held); (b) ``tools/profile_decode`` at b8 with the
+     exact and the value-ordered top-k: each stage's ms and leader_nms's
+     host reads, the staged Detections equal to ``decode_output``'s bit for
+     bit (the tool raises otherwise), K1 once a decode; then the
+     value-ordered top-k of the serving slice's b8 keypoint map held equal
+     across its ``torch.topk`` form, a stable sort of the keys and the CPU,
+     ``select_peaks_batch`` card == CPU in both modes, the forms, the
+     bisection and ``torch.topk`` of the values timed in turns (CUDA events
+     around a call, and the device time of 20 queued calls), K1 held against its twin on the value-ordered inputs
+     of a ``Predictor`` with ``DecodeConfig(exact_topk=False)`` (as phase 5
+     holds it), and phase 4's scene decoded that way, card against CPU;
+     (c) ``tools/profile_infer_blocks`` and ``tools/profile_blocks`` at b8;
+     (d) ``tools/bench_train_data`` at b4, packed and json, 16 frames of
+     1024x2048, 4 data workers, 8 timed steps: from-disk and resident img/s,
+     the stall share, K2-K5 once a step (held); (e) ``tools/profile_infer
+     --trace`` at b1 as a subprocess: the top 10 kernels and the device's
+     idle share of the traced request (device kernels required).
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -176,7 +199,8 @@ from the full-resolution slice; phase 12's ranks count their own; phase 13
 counts K1 over each CLI run, phase 14 every kernel over each train run, and
 phase 16 K1 over each CLI run and the coef-8 requests and every kernel over
 its train run; phase 17 K1-K5 over the capstone and K1 over one call of the
-exported program.
+exported program; phase 18 K1 over each profiled decode and K2-K5 over the
+from-disk steps.
 Phase 15, the last, stops the data workers' fork server and fails if a process this
 script started (its descendants, multiprocessing's resource tracker aside:
 it ends with this process) is still alive. The
@@ -195,6 +219,8 @@ import math
 import multiprocessing.resource_tracker
 import os
 import shutil
+import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -225,8 +251,9 @@ from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
 from instance_segmentation_torch.tools import (
-    convert_polygon, export_model, fullres_demo, jpeg_digests, make_synthetic_cityscapes,
-    make_synthetic_coco, multichip, overfit_demo, preprocess_cityscapes,
+    bench_train_data, convert_polygon, export_model, fullres_demo, jpeg_digests,
+    make_synthetic_cityscapes, make_synthetic_coco, multichip, overfit_demo, preprocess_cityscapes,
+    profile_blocks, profile_decode, profile_infer, profile_infer_blocks,
 )
 from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
 from instance_segmentation_torch.training.train_step import Trainer
@@ -545,7 +572,7 @@ def phase_affinity(dev: torch.device, strict: bool = True) -> None:
     hold_affinity_edge_cases(dev, strict)
 
 
-def phase_decode(dev: torch.device) -> None:
+def phase_decode(dev: torch.device, cfg: DecodeConfig = SCENE_DECODE, tag: str = "[4]") -> None:
     """Synthetic scene: card (K1 grouping) against CPU (plain grouping)."""
     outputs, anchors = synthetic_scene(margin=0.5)
     h, w = outputs[0].shape[1:3]
@@ -553,7 +580,7 @@ def phase_decode(dev: torch.device) -> None:
     def run(device):
         outs = tuple(torch.from_numpy(o).to(device) for o in outputs)
         dets = decode_output(outs, torch.tensor(anchors, device=device),
-                             2 * h, 2 * w, 2.0, SCENE_DECODE)
+                             2 * h, 2 * w, 2.0, cfg)
         return type(dets)(*(t.cpu() for t in dets))
 
     gpu, cpu = run(dev), run(torch.device("cpu"))
@@ -568,9 +595,9 @@ def phase_decode(dev: torch.device) -> None:
             worst = max(worst, float((g - c).abs().max()))
         else:
             check(torch.equal(g, c), f"decode field {name} differs")
-    print(f"[4] synthetic decode: 2 objects, classes {{0, 1}}, poly_len "
-          f"{gpu.poly_len[gpu.obj_valid].tolist()}; card (K1) == cpu (plain) on int/bool "
-          f"fields, floats max|diff| {worst:.3g} (tol 1e-5)", flush=True)
+    print(f"{tag} synthetic decode (exact_topk={cfg.exact_topk}): 2 objects, classes {{0, 1}}, "
+          f"poly_len {gpu.poly_len[gpu.obj_valid].tolist()}; card (K1) == cpu (plain) on "
+          f"int/bool fields, floats max|diff| {worst:.3g} (tol 1e-5)", flush=True)
 
 
 @contextlib.contextmanager
@@ -2176,6 +2203,163 @@ def phase_last_modules(dev: torch.device, smi: str) -> None:
         phase_convert_polygon(root)
     print(f"[17] phase 17 took {time.perf_counter() - start:.1f} s", flush=True)
 
+# ---------------------------------------------------------------------------
+# Phase 18: the profilers of the serving and from-disk training paths
+# ---------------------------------------------------------------------------
+
+TOOL_ITERS = {"infer": 20, "decode": 10, "blocks": 10, "train_blocks": 5}
+TOOL_COMPOUND, TOOL_HW, TOOL_BATCH = 3, (512, 1024), 8   # the serving slice; frames 2x TOOL_HW
+DATA_BENCH = {"images": 16, "steps": 8, "batch": 4, "workers": 4}   # (d), per mode
+TOPK_ROUNDS = 6                      # (b): rounds of the top-k forms' timings
+PHASE18_TIMEOUT = 600.0              # seconds for the phase's own process
+
+
+def tool_log(part: str):
+    """A tool's ``log``: its lines printed under the phase and the part."""
+    def log(msg, **kw):
+        print(f"[18] ({part}) {msg}", **kw)
+    return log
+
+
+def value_topk_by_sort(flat: torch.Tensor, k: int):
+    """The value-ordered top-k as one stable descending sort of the
+    monotonic keys: the form ``ops/decode.value_topk_indices`` was timed
+    against (phase 18 (b))."""
+    _, idx = torch.sort(decode._monotonic_u32(flat), dim=1, descending=True, stable=True)
+    idx = idx[:, :k]
+    return flat.gather(1, idx), idx
+
+
+def phase_topk(dev: torch.device, smi: str) -> None:
+    """Phase 18 (b), beside ``profile_decode``: the serving slice's b8
+    keypoint map with the value-ordered top-k; the top-k forms timed and held
+    (card against CPU, the sort against ``torch.topk`` over unique keys); K1
+    held against its twin on the value-ordered inputs it gets; the approx
+    decode of phase 4's scene card against CPU."""
+    cfg = EfficientSegConfig(num_classes=8, compound_coef=TOOL_COMPOUND,
+                             compute_dtype=torch.bfloat16)
+    dcfg = DecodeConfig(exact_topk=False)
+    h, w = TOOL_HW
+    pred = Predictor(cfg, dcfg, torch.Generator().manual_seed(0), dev,
+                     orig_hw=(2 * h, 2 * w), scale=2.0)
+    frames = np.random.default_rng(0).integers(0, 256, (TOOL_BATCH, h, w, 3), dtype=np.uint8)
+    affinity.launches = 0
+    with first_k1_inputs() as served:
+        dets = pred.predict(frames)
+    torch.cuda.synchronize()
+    check(affinity.launches == 1, f"[18] approx decode: K1 launched {affinity.launches} times")
+    check(bool(torch.isfinite(dets.polygons).all()), "[18] approx decode: polygons not finite")
+    with torch.inference_mode():
+        kp = pred.model(torch.from_numpy(frames).to(dev))[0][..., 0].float()
+    flat = kp.reshape(kp.shape[0], -1)
+    k = dcfg.kp_th
+    forms = {"value_topk_indices (torch.topk over unique keys)": decode.value_topk_indices,
+             "stable sort of the keys": value_topk_by_sort,
+             "exact bisection (exact_topk_indices)": decode.exact_topk_indices}
+    got = {name: fn(flat, k) for name, fn in forms.items()}
+    names = list(forms)
+    check(torch.equal(got[names[0]][1], got[names[1]][1]),
+          "[18] value-ordered top-k: torch.topk form and sort form differ")
+    _, cpu_i = decode.value_topk_indices(flat.cpu(), k)
+    check(torch.equal(got[names[0]][1].cpu(), cpu_i), "[18] value-ordered top-k: card != CPU")
+    for exact in (False, True):
+        card = [t.cpu() for t in decode.select_peaks_batch(kp, k, exact=exact)]
+        host = decode.select_peaks_batch(kp.cpu(), k, exact=exact)
+        check(all(torch.equal(a, b) for a, b in zip(card, host)),
+              f"[18] select_peaks_batch(exact={exact}): card != CPU")
+    ties = int((flat[:, None, :] == got[names[0]][0][:, -1:, None]).sum())
+    forms["torch.topk of the values alone (ties not ruled)"] = (
+        lambda f, k: torch.topk(f, k, dim=1))
+    # in turns (forward and reverse order), each round: the CUDA events
+    # around one call (host time before the first launch included) and the
+    # device time of 20 calls queued behind a device wait (no host gaps)
+    calls, queued = ({name: [] for name in forms} for _ in range(2))
+    for r in range(TOPK_ROUNDS):
+        for name in (list(forms) if r % 2 == 0 else list(forms)[::-1]):
+            calls[name].append(cuda_median_ms(lambda fn=forms[name]: fn(flat, k)))
+            queued[name].append(kernel_timing.queued_ms(lambda fn=forms[name]: fn(flat, k)))
+    ascending = bool((served[0][..., 0] * w + served[0][..., 1]).diff(dim=1).ge(0).all())
+    print(f"[18] (b) top-k of the b8 keypoint map {tuple(flat.shape)}, k={k}: the torch.topk "
+          f"form equals the sort form and the CPU's; select_peaks_batch card == CPU in both "
+          f"modes; values equal to the k-th {ties}; ms, {TOPK_ROUNDS} rounds in turns, each "
+          f"the median of 20 calls between CUDA events | the device time of 20 calls queued: "
+          + "; ".join(f"{name} {[round(t, 4) for t in calls[name]]} (median "
+                      f"{np.median(calls[name]):.4f}) | {[round(t, 4) for t in queued[name]]} "
+                      f"(median {np.median(queued[name]):.4f})" for name in forms)
+          + f"; [{smi}]", flush=True)
+    hold_affinity(18, f"the approx decode's b8 inputs (keypoints in value order; ascending "
+                      f"pixel order {ascending})", served)
+    phase_decode(dev, DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512,
+                                   exact_topk=False), tag="[18] (b)")
+    del pred
+
+
+def phase_tools() -> None:
+    """Phase 18 in a process of its own (``phase_tools_process``), so that
+    its profiler windows come early in their process."""
+    sys.stdout.flush()
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                           "chip_smoke.phase_tools_process()"],
+                          cwd=Path(__file__).resolve().parent, timeout=PHASE18_TIMEOUT)
+    check(proc.returncode == 0, f"[18] phase 18 exited with {proc.returncode}")
+    print(f"[18] phase 18 took {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def phase_tools_process() -> None:
+    """Phase 18: the profilers through their entry points, on the card."""
+    dev = require_cuda()
+    kernel_timing.hook(build)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_name_power()
+    shape = {"compound": TOOL_COMPOUND, "hw": TOOL_HW}
+    for quant in ("none", "int8"):
+        rec = profile_infer.run(batches=(1, TOOL_BATCH), iters=TOOL_ITERS["infer"], quant=quant,
+                                log=tool_log("a"), **shape)
+        for b, r in rec["batches"].items():
+            check(r["k1_per_decode"] == 1.0,
+                  f"[18] profile_infer {quant} b{b}: K1 {r['k1_per_decode']} launches a decode")
+            check(bool(r["launches"]), f"[18] profile_infer {quant} b{b}: no device kernels "
+                  f"in the profiled request")
+    for topk in ("exact", "approx"):
+        rec = profile_decode.run(batch=TOOL_BATCH, iters=TOOL_ITERS["decode"], topk=topk,
+                                 log=tool_log("b"), **shape)
+        check(rec["staged_equal"] and rec["k1_per_decode"] == 1.0,
+              f"[18] profile_decode {topk}: {rec['k1_per_decode']} K1 launches a decode")
+    gc.collect()
+    phase_topk(dev, smi)
+    gc.collect()
+    profile_infer_blocks.run(batch=TOOL_BATCH, iters=TOOL_ITERS["blocks"], log=tool_log("c"),
+                             **shape)
+    profile_blocks.run(batch=TOOL_BATCH, iters=TOOL_ITERS["train_blocks"], log=tool_log("c"),
+                       **shape)
+    gc.collect()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        for mode in ("packed", "json"):
+            rec = bench_train_data.run(mode, compound=TOOL_COMPOUND, out=tmp,
+                                       frame_hw=(2 * TOOL_HW[0], 2 * TOOL_HW[1]), **DATA_BENCH)
+            print(f"[18] (d) bench_train_data {json.dumps(rec)}", flush=True)
+            steps = DATA_BENCH["steps"]
+            check(all(n == steps for n in rec["launches"].values()),
+                  f"[18] bench_train_data {mode}: launches {rec['launches']} in {steps} steps")
+            check(np.isfinite(rec["total_loss"]), f"[18] bench_train_data {mode}: loss")
+        stop_fork_server()
+        trace_dir = Path(tmp) / "trace"
+        out = subprocess.run(
+            [sys.executable, "-m", "instance_segmentation_torch.tools.profile_infer",
+             "--batches", "1", "--iters", "5", "--trace", str(trace_dir), "--top", "10",
+             "--compound", str(TOOL_COMPOUND), "--hw", *map(str, TOOL_HW)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=PHASE18_TIMEOUT)
+        check(out.returncode == 0, f"[18] (e) profile_infer --trace failed: {out.stderr[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"[18] (e) {line}", flush=True)
+        traced = json.loads(lines[-1])["batches"]["1"]
+        check(bool(traced["launches"]) and traced["idle_share"] is not None and traced["top"],
+              "[18] (e) the trace holds no device kernels")
+
 
 def descendants() -> list:
     """(pid, command) of every live process below this one, from ``/proc``."""
@@ -2252,6 +2436,7 @@ def main() -> None:
     phase_train_cli(dev, smi)
     phase_coco(dev, smi)
     phase_last_modules(dev, smi)
+    phase_tools()
     phase_processes()
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))

@@ -48,13 +48,18 @@ from instance_segmentation_torch.utils.png import write_png
 
 
 def decode_cfg_from(cfg) -> DecodeConfig:
-    """The decode YAML's keys, and ``group_mode`` ("affinity" without it),
-    which the JAX package's reader leaves at its default."""
+    """The decode YAML's keys, and ``group_mode`` ("affinity" without it)
+    and ``exact_topk`` (true without it), which the JAX package's reader
+    leaves at their defaults."""
+    exact = cfg.get("exact_topk", DecodeConfig.exact_topk)
+    if not isinstance(exact, bool):
+        raise ValueError(f"decode exact_topk: want true or false, got {exact!r}")
     return DecodeConfig(
         cls_th=float(cfg.cls_th), iou_th=float(cfg.iou_th),
         kp_th=int(cfg.kp_th), obj_pixel_th=int(cfg.obj_pixel_th),
         wh_delta=float(cfg.wh_delta),
-        group_mode=str(cfg.get("group_mode") or DecodeConfig.group_mode))
+        group_mode=str(cfg.get("group_mode") or DecodeConfig.group_mode),
+        exact_topk=exact)
 
 
 def detections_to_json(dets, infos) -> List[List]:

@@ -160,9 +160,14 @@ class EfficientSeg(nn.Module):
         cast_convs(self, param_dtype or cfg.compute_dtype)
         self.eval()
 
-    def forward(self, images: torch.Tensor):
+    def input_tensor(self, images: torch.Tensor) -> torch.Tensor:
+        """uint8 [B, H, W, 3] frames -> the normalised [B, 3, H, W] input in
+        the compute dtype, which the backbone and the U-Net take."""
         x = (images.float() - self.pixel_mean) / self.pixel_std
-        x = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
+        return x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
+
+    def forward(self, images: torch.Tensor):
+        x = self.input_tensor(images)
         backbone = self.backbone_net["model"]
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         if remat:

@@ -9,9 +9,12 @@ compute differently):
 
   * box top-k is a stable descending sort (the reference's TopK puts the
     lower index first on ties, and invalid slots gather ``b_k[0]``);
-  * the keypoint top-k is the reference's 18-step bisection in monotonic-u32
-    space plus its band rule (everything above ``hi``, the rest of k from
-    the band ``(lo, hi]`` in index order), not ``torch.topk``;
+  * the keypoint top-k (``exact_topk=True``) is the reference's 18-step
+    bisection in monotonic-u32 space plus its band rule (everything above
+    ``hi``, the rest of k from the band ``(lo, hi]`` in index order), not
+    ``torch.topk``; ``exact_topk=False`` is the value-ordered top-k that the
+    reference's ``approx_max_k`` computes off the TPU (XLA's TopK: values
+    descending, ties to the lower index), ``value_topk_indices``;
   * the 3x3 peak test zero-fills outside the map;
   * grouping (kernel K1) gives keypoints in no box slot 0 and lets the first
     maximum win; ``group_mode="kmeans"`` refines K1's assignment with
@@ -59,7 +62,7 @@ class DecodeConfig:
     max_dets: int = 96            # detections kept
     max_poly: int = 1024          # polygon vertex budget per object
     pair_candidates: int = 12     # points tried for the internal-point fallback
-    exact_topk: bool = True       # False (approximate top-k) is TPU-only, not ported
+    exact_topk: bool = True       # False: the value-ordered top-k (approx_max_k off the TPU)
     group_mode: str = "affinity"  # "affinity" (K1) or "kmeans" (K1, then Lloyd steps)
     kmeans_iters: int = 5
 
@@ -243,12 +246,37 @@ def exact_topk_indices(flat: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.
     return flat.gather(1, idx), idx
 
 
-def select_peaks_batch(hm: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k + 3x3 peak test on [B, H, W] maps -> (flat indices [B, k]
-    ascending, peak [B, k] bool). The peak test runs on the top-k-masked map,
-    with masked-out pixels and the outside of the map counting as 0."""
+def value_topk_indices(flat: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of [B, N] float32 in value order -> (values [B, k], indices
+    [B, k]): values descending in float32's total order (-0 below +0, NaN
+    above inf), and where values tie the lower index first, both in which of
+    the tied values at the k-th place are kept and in their order. That is
+    XLA's TopK, which the reference's ``approx_max_k`` lowers to off the TPU.
+    One ``torch.topk`` over unique int64 keys (the monotonic key above the
+    index's complement), so no tie is left to ``torch.topk``'s order."""
+    B, N = flat.shape
+    k = min(k, N)
+    bits = max(1, (N - 1).bit_length())
+    if bits > 31:
+        raise ValueError(f"value_topk_indices takes rows of at most 2**31 values (got {N})")
+    low = (1 << bits) - 1
+    cols = torch.arange(N, device=flat.device)
+    key = (_monotonic_u32(flat) << bits) | (low - cols)
+    idx = low - (torch.topk(key, k, dim=1).values & low)
+    return flat.gather(1, idx), idx
+
+
+def select_peaks_batch(hm: torch.Tensor, k: int,
+                       exact: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k + 3x3 peak test on [B, H, W] maps -> (flat indices [B, k], peak
+    [B, k] bool). ``exact``: the bisection top-k, indices ascending
+    (``exact_topk_indices``); else the value-ordered top-k
+    (``value_topk_indices``). The peak test runs on the top-k-masked map
+    (every pixel at or above the k-th value), with masked-out pixels and the
+    outside of the map counting as 0."""
     B, H, W = hm.shape
-    top_v, top_i = exact_topk_indices(hm.reshape(B, -1), k)
+    topk = exact_topk_indices if exact else value_topk_indices
+    top_v, top_i = topk(hm.reshape(B, -1), k)
     thresh = top_v.min(dim=1).values
     masked = torch.where(hm >= thresh[:, None, None], hm, torch.zeros_like(hm))
     hmax = F.max_pool2d(F.pad(masked[:, None], (1, 1, 1, 1)), 3, stride=1)[:, 0]
@@ -256,9 +284,9 @@ def select_peaks_batch(hm: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Te
     return top_i, peak
 
 
-def select_peaks(hm: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def select_peaks(hm: torch.Tensor, k: int, exact: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-image ``select_peaks_batch``: [H, W] -> ([k], [k])."""
-    idx, ok = select_peaks_batch(hm[None], k)
+    idx, ok = select_peaks_batch(hm[None], k, exact=exact)
     return idx[0], ok[0]
 
 
@@ -432,25 +460,12 @@ def decode_centers(conf_hm: torch.Tensor, cls_hm: torch.Tensor, wh_map: torch.Te
 # Full decode
 # ---------------------------------------------------------------------------
 
-def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
-                  scale_int: float, cfg: DecodeConfig = DecodeConfig()) -> Detections:
-    """Full decode of a model forward pass.
-
-    outputs = (kp [B,H,W,1], ae [B,H,W,4], tan, regression [B,A,4],
-    classification [B,A,C]), float32, on one device; anchors [A, 4] on it.
-    Grouping runs kernel K1 on CUDA tensors and its plain version on CPU ones.
-    """
-    if cfg.group_mode not in ("affinity", "kmeans"):
-        raise ValueError(f"group_mode={cfg.group_mode!r}: 'affinity' or 'kmeans'")
-    if not cfg.exact_topk:
-        raise NotImplementedError("approximate top-k is a TPU-only path, not ported")
-    kp, ae, _tan, regression, classification = outputs
-    B, H, W, _ = kp.shape
-
-    boxes, scores, classes, det_valid = decode_boxes(
-        classification, regression, anchors, H, W, cfg)
-
-    flat_idx, kp_ok = select_peaks_batch(kp[..., 0], cfg.kp_th)         # [B,K]
+def keypoint_embeddings(flat_idx: torch.Tensor, ae: torch.Tensor, boxes: torch.Tensor,
+                        H: int, W: int):
+    """The grouping's inputs from the peaks' flat indices [B, K] into the
+    [B, H, W] map and the AE map [B, H, W, 4]: (kp_rc [B, K, 2] (row, col),
+    emb [B, K, 2], sig [B, K, 2], c_emb [B, D, 2] at the box centres)."""
+    B = flat_idx.shape[0]
     rr = torch.div(flat_idx, W, rounding_mode="floor").float()
     cc = (flat_idx % W).float()
     kp_rc = torch.stack([rr, cc], dim=-1)                               # [B,K,2]
@@ -466,7 +481,13 @@ def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
     # the centres' embeddings: coordinate_grid at (ci, cj), computed there so
     # that frames past 1024x2048 (coef 8's 1536x1536) decode too
     c_emb = torch.stack([ci.float() / 1023.0, cj.float() * (2.0 / 2047.0)], dim=-1)
+    return kp_rc, emb, sig, c_emb
 
+
+def group_keypoints(kp_rc, kp_ok, emb, sig, c_emb, boxes, det_valid,
+                    cfg: DecodeConfig) -> torch.Tensor:
+    """Each keypoint's detection [B, K]: K1 (``affinity_assign``), refined by
+    ``cfg.kmeans_iters`` Lloyd steps where ``group_mode`` is "kmeans"."""
     assign, _best = affinity_assign(kp_rc, emb, sig, c_emb, boxes, det_valid)
     if cfg.group_mode == "kmeans":
         km, _ = kmeans(emb, c_emb, valid=kp_ok, num_iters=cfg.kmeans_iters)
@@ -477,7 +498,27 @@ def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
                   (kp_rc[..., 1] >= box[..., 0]) & (kp_rc[..., 1] <= box[..., 2]) &
                   det_valid.gather(1, slot))
         assign = torch.where((km < D) & in_box, km, assign)
+    return assign
 
+
+def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
+                  scale_int: float, cfg: DecodeConfig = DecodeConfig()) -> Detections:
+    """Full decode of a model forward pass.
+
+    outputs = (kp [B,H,W,1], ae [B,H,W,4], tan, regression [B,A,4],
+    classification [B,A,C]), float32, on one device; anchors [A, 4] on it.
+    Grouping runs kernel K1 on CUDA tensors and its plain version on CPU ones.
+    """
+    if cfg.group_mode not in ("affinity", "kmeans"):
+        raise ValueError(f"group_mode={cfg.group_mode!r}: 'affinity' or 'kmeans'")
+    kp, ae, _tan, regression, classification = outputs
+    H, W = kp.shape[1:3]
+
+    boxes, scores, classes, det_valid = decode_boxes(
+        classification, regression, anchors, H, W, cfg)
+    flat_idx, kp_ok = select_peaks_batch(kp[..., 0], cfg.kp_th, exact=cfg.exact_topk)
+    kp_rc, emb, sig, c_emb = keypoint_embeddings(flat_idx, ae, boxes, H, W)
+    assign = group_keypoints(kp_rc, kp_ok, emb, sig, c_emb, boxes, det_valid, cfg)
     polys, lens, centers, obj_ok = assemble_objects(
         kp_rc, kp_ok, assign, boxes, det_valid, H, W, orig_h, orig_w, scale_int, cfg)
     return Detections(boxes=boxes, scores=scores, classes=classes,

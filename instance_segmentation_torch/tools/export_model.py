@@ -4,7 +4,8 @@
 Counterpart of the JAX package's ``tools/export_model.py``. The program
 takes a uint8 batch [B, H, W, 3] and returns the flat tuple
 ``(classes, scores, centers, polygons, poly_len, obj_valid)`` of
-``decode_output(DecodeConfig())``; K1 appears in it as the custom op
+``decode_output(DecodeConfig(exact_topk=...))`` (``--topk approx``: the
+value-ordered top-k); K1 appears in it as the custom op
 ``iseg::affinity_assign``, which importing ``kernels/affinity.py`` registers
 (``load`` does, before it reads the file). The JAX tool cross-lowers for
 another platform (``--platform``); ``torch.export`` records the program for
@@ -13,7 +14,8 @@ unless ``cpu`` is given) and the program runs there.
 
     python -m instance_segmentation_torch.tools.export_model --out model.pt2 \\
         [--weights CKPT_DIR] [--compound 3] [--hw 512 1024] [--batch 1] \\
-        [--num_classes 8] [--quant none|int8] [--verify] [--device cpu]
+        [--num_classes 8] [--quant none|int8] [--topk exact|approx] [--verify] \\
+        [--device cpu]
 
 ``--weights`` is a directory of the port's checkpoints (the latest is
 baked in; seeded weights of ``weights.init_random(0)`` without it).
@@ -58,7 +60,7 @@ class ServeProgram(nn.Module):
 
 def build_export(compound: int, hw, batch: int, num_classes: int, quant: str = "none",
                  weights: Optional[str] = None, device: torch.device = torch.device("cpu"),
-                 orig_hw=None):
+                 orig_hw=None, decode_cfg: DecodeConfig = DecodeConfig()):
     """Returns (torch.export.ExportedProgram, the live ``ServeProgram``, the
     example batch on ``device``)."""
     H, W = hw
@@ -73,7 +75,7 @@ def build_export(compound: int, hw, batch: int, num_classes: int, quant: str = "
     anchors = torch.tensor(generate_anchors(
         H, W, pyramid_levels=cfg.pyramid_levels, anchor_scale=cfg.anchor_scale,
         scales=cfg.scales, ratios=cfg.ratios), device=device)
-    live = ServeProgram(model, anchors, orig_hw, float(orig_hw[0] / H))
+    live = ServeProgram(model, anchors, orig_hw, float(orig_hw[0] / H), decode_cfg)
     example = torch.from_numpy(np.random.default_rng(0).integers(
         0, 255, (batch, H, W, 3), dtype=np.uint8)).to(device)
     with torch.no_grad():
@@ -111,6 +113,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--num_classes", type=int, default=8)
     ap.add_argument("--quant", default="none", choices=("none", "int8"))
+    ap.add_argument("--topk", default="exact", choices=("exact", "approx"),
+                    help="the decode's keypoint top-k: exact (the bisection, the default) or "
+                         "approx (value-ordered, DecodeConfig(exact_topk=False))")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="the device the program is traced and runs on (the JAX tool's "
                          "--platform cross-lowering has no torch counterpart): cuda "
@@ -124,7 +129,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = torch.device("cpu") if args.device == "cpu" else require_cuda()
     program, live, example = build_export(
         args.compound, tuple(args.hw), args.batch, args.num_classes, quant=args.quant,
-        weights=args.weights, device=device)
+        weights=args.weights, device=device,
+        decode_cfg=DecodeConfig(exact_topk=args.topk == "exact"))
     torch.export.save(program, args.out)
     print(f"wrote {args.out}: {os.path.getsize(args.out) / 1e6:.1f} MB, device={device.type}")
     if args.verify:

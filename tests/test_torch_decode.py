@@ -277,16 +277,132 @@ def test_decode_output_synthetic_scene_equals_reference(margin):
 
 
 def test_unported_modes_raise():
-    """Approximate top-k (TPU-only) raises; so does a grouping mode that is
-    neither "affinity" nor "kmeans" (kmeans, once listed here, is ported:
-    tests/test_torch_kmeans.py)."""
+    """A grouping mode that is neither "affinity" nor "kmeans" raises
+    (kmeans, once listed here, is ported: tests/test_torch_kmeans.py; so is
+    ``exact_topk=False``: the value-ordered top-k tests below)."""
     outputs, anchors = chip_smoke.synthetic_scene()
     with pytest.raises(ValueError, match="group_mode"):
         td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
                          td.DecodeConfig(kp_th=2000, group_mode="spectral"))
-    with pytest.raises(NotImplementedError, match="approximate top-k"):
-        td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
-                         td.DecodeConfig(kp_th=2000, exact_topk=False))
+
+
+def _value_topk_maps():
+    """[B, H, W] maps and k for the value-ordered top-k."""
+    rng = np.random.default_rng(12)
+    random = rng.normal(size=(2, 64, 96)).astype(np.float32)
+    # few distinct values: ties inside the top k and across the k-th place,
+    # signed zeros among them
+    ties = (rng.integers(0, 5, size=(2, 64, 96)) * 0.5).astype(np.float32)
+    ties[0, 3, 4], ties[1, 60, 90] = -0.0, 0.0
+    special = rng.normal(size=(2, 40, 50)).astype(np.float32)
+    special[0, 1, 1] = special[1, 7, 7] = np.nan
+    special[0, 2, 2], special[1, 3, 3] = np.inf, -np.inf
+    # at k = H*W XLA's fallback sorts the whole row without keeping ties in
+    # index order (the k = H*W tie case below holds what it does keep)
+    return {"random_k500": (random, 500), "ties_k2000": (ties, 2000),
+            "random_k_hw": (random, 64 * 96), "random_k_over_hw": (random[:, :8, :8], 100),
+            "nan_inf_k300": (special, 300)}
+
+
+@pytest.mark.parametrize("case", list(_value_topk_maps()))
+def test_value_topk_select_peaks_equal_reference(case):
+    """``select_peaks_batch(exact=False)`` against the JAX decode's jitted
+    ``approx_max_k`` branch, which XLA lowers off the TPU to an exact top-k
+    in value order: indices and peak flags bitwise."""
+    hm, k = _value_topk_maps()[case]
+    want_i, want_ok = jax.jit(lambda h: jd.select_peaks_batch(h, k, exact=False))(hm)
+    got_i, got_ok = td.select_peaks_batch(*_t(hm), k, exact=False)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+    want_v, _ = jax.jit(lambda a: jax.lax.top_k(a, min(k, a.shape[1])))(
+        hm.reshape(hm.shape[0], -1))
+    got_v, _ = td.value_topk_indices(*_t(hm.reshape(hm.shape[0], -1)), k)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def test_value_topk_ties_at_k_hw_match_reference_up_to_tie_order():
+    """k = H*W on a map of five values: the same values in the same order and,
+    within each run of equal values, the same indices as JAX's branch (which
+    there orders a run's indices as its sort leaves them, and takes -0.0 and
+    0.0 as equal); peaks bitwise once the runs are in index order."""
+    hm = np.abs(_value_topk_maps()["ties_k2000"][0])     # its sort takes -0.0 == 0.0
+    k = hm.shape[1] * hm.shape[2]
+    want_i, want_ok = (np.asarray(a) for a in jax.jit(
+        lambda h: jd.select_peaks_batch(h, k, exact=False))(hm))
+    got_i, got_ok = (a.numpy() for a in td.select_peaks_batch(*_t(hm), k, exact=False))
+    flat = hm.reshape(hm.shape[0], -1)
+    for b in range(hm.shape[0]):
+        vals = flat[b, got_i[b]]
+        np.testing.assert_array_equal(vals, flat[b, want_i[b]])
+        assert (np.diff(vals) <= 0).all()
+        runs = np.split(np.arange(k), np.nonzero(np.diff(vals))[0] + 1)
+        for run in runs:
+            assert (np.diff(got_i[b, run]) > 0).all()
+            np.testing.assert_array_equal(got_i[b, run], np.sort(want_i[b, run]))
+        order = np.argsort(want_i[b])
+        np.testing.assert_array_equal(got_ok[b][np.argsort(got_i[b])], want_ok[b][order])
+
+
+def test_value_topk_ties_take_the_lower_index():
+    """Ties at the k-th place keep the lower indices, and tied values come
+    in index order: the rule, on a map of one value."""
+    flat = torch.zeros(1, 50)
+    flat[0, [7, 3, 40]] = torch.tensor([2.0, 1.0, 1.0])
+    v, i = td.value_topk_indices(flat, 6)
+    assert i[0].tolist() == [7, 3, 40, 0, 1, 2]
+    assert v[0].tolist() == [2.0, 1.0, 1.0, 0.0, 0.0, 0.0]
+
+
+def test_decode_output_value_topk_synthetic_scene_equals_reference():
+    """The synthetic scene (a -8.0 background tied across the k-th place) with
+    ``exact_topk=False``: the whole decode against JAX's."""
+    outputs, anchors = chip_smoke.synthetic_scene(128, 192, margin=0.5)
+    cfg = jd.DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512, exact_topk=False)
+    want = jax.jit(lambda o, a: jd.decode_output(o, a, 256, 384, 2.0, cfg))(
+        tuple(map(jnp.asarray, outputs)), jnp.asarray(anchors))
+    got = td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
+                           td.DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512,
+                                           exact_topk=False))
+    assert_detections_match(got, want)
+    assert int(got.obj_valid.sum()) == 2
+
+
+@pytest.fixture(scope="module")
+def value_topk_slice():
+    """The B0 slice of tests/test_torch_slice.py (128x256, JAX-converted
+    weights, kp_th 2000) decoded with ``exact_topk=False``."""
+    from test_torch_slice import make_slice_case
+    return make_slice_case(exact_topk=False)
+
+
+def test_decode_output_value_topk_b0_matches_jax(value_topk_slice):
+    """The port's decode of the JAX forward's head maps against JAX's jitted
+    decode, both with the value-ordered top-k, under test_torch_slice.py's
+    rules (vertices tied in polar angle may swap)."""
+    _, outputs, dets, pred = value_topk_slice
+    got = td.decode_output(tuple(torch.from_numpy(o) for o in outputs), pred.anchors,
+                           256, 512, 2.0, pred.decode_cfg)
+    assert_detections_match(got, dets, angle_ties=True)
+    assert int(got.det_valid.sum()) > 0 and int(got.obj_valid.sum()) > 0
+
+
+def test_forward_and_decode_value_topk_b0_matches_jax(value_topk_slice):
+    """``forward_and_decode`` (through the Predictor) with the value-ordered
+    top-k: equal to the port's decode of the port's own head maps, and, as
+    test_torch_slice.py holds a Predictor (its model within 2e-4 of JAX's),
+    with JAX's jitted forward + decode's detections per image."""
+    frames, _, dets, pred = value_topk_slice
+    got = pred.predict(frames)
+    with torch.no_grad():
+        heads = pred.model(torch.from_numpy(frames))
+    again = td.decode_output(heads, pred.anchors, 256, 512, 2.0, pred.decode_cfg)
+    for name, g, a in zip(got._fields, got, again):
+        assert torch.equal(g, a), name
+    np.testing.assert_array_equal(got.det_valid.sum(1).numpy(),
+                                  np.asarray(dets.det_valid).sum(1))
+    exact = td.forward_and_decode(pred.model, torch.from_numpy(frames), pred.anchors,
+                                  256, 512, 2.0, td.DecodeConfig(kp_th=2000))
+    assert torch.equal(exact.det_valid, got.det_valid)
 
 
 def test_decode_config_and_anchors_match_reference():

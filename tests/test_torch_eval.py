@@ -414,3 +414,16 @@ def test_official_results_meters_and_writers_equal_jax(tmp_path):
     lines = (tmp_path / "log" / "logs" / "metrics.jsonl").read_text().splitlines()
     assert json.loads(lines[0])["tag"] == "ap"
     assert "hello" in (tmp_path / "log" / "logs" / "log.txt").read_text()
+
+
+def test_decode_cfg_from_reads_the_top_k_mode():
+    """The decode YAML's ``exact_topk`` (absent: true, JAX's default; the JAX
+    reader ignores it) reaches the DecodeConfig; anything but a boolean
+    raises."""
+    assert tel.decode_cfg_from(TConfig(DECODE)) == td.DecodeConfig(kp_th=2000)
+    assert tel.decode_cfg_from(TConfig(DECODE)) == td.DecodeConfig(
+        **{k: v for k, v in jel.decode_cfg_from(JConfig(DECODE)).__dict__.items()})
+    approx = tel.decode_cfg_from(TConfig({**DECODE, "exact_topk": False}))
+    assert approx == td.DecodeConfig(kp_th=2000, exact_topk=False)
+    with pytest.raises(ValueError, match="exact_topk"):
+        tel.decode_cfg_from(TConfig({**DECODE, "exact_topk": "false"}))

@@ -16,6 +16,7 @@ from instance_segmentation_tpu.models import EfficientSeg as JSeg
 from instance_segmentation_tpu.models import EfficientSegConfig as JCfg
 from instance_segmentation_torch.kernels import affinity
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig
+from instance_segmentation_torch.ops.decode import DecodeConfig
 from instance_segmentation_torch.tools import export_model
 from instance_segmentation_torch.utils.checkpoint import checkpoint_name
 from instance_segmentation_torch.weights import load_flax_variables
@@ -62,6 +63,22 @@ def test_export_save_load_equals_live(exported):
                                             (1, 96), (1, 96)]
     assert [t.dtype for t in got] == [torch.int32, torch.float32, torch.float32,
                                       torch.float32, torch.int32, torch.bool]
+
+
+def test_value_topk_program_equals_live_decode(weights_dir, tmp_path):
+    """``DecodeConfig(exact_topk=False)`` exported, saved and loaded: one
+    ``topk`` over the keys in place of the bisection, and every output equal
+    to the live decode's."""
+    program, live, example = export_model.build_export(
+        0, (H, W), 1, 8, weights=weights_dir, decode_cfg=DecodeConfig(exact_topk=False))
+    assert not live.decode_cfg.exact_topk
+    path = tmp_path / "approx.pt2"
+    torch.export.save(program, str(path))
+    loaded = export_model.load(str(path))
+    targets = [str(n.target) for n in loaded.graph.nodes if n.op == "call_function"]
+    assert targets.count("aten.topk.default") == 1
+    assert sum(t == "iseg.affinity_assign.default" for t in targets) == 1
+    export_model.verify(loaded, live, example)
 
 
 def test_int8_cli_exports_and_verifies_on_the_cpu(weights_dir, tmp_path, capsys):

@@ -30,8 +30,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.fixture(scope="module")
-def slice_case():
+def make_slice_case(exact_topk: bool = True):
+    """(frames, the JAX forward's outputs, the JAX decode of them, a port
+    Predictor on the same weights), both decodes at kp_th 2000 with
+    ``exact_topk``."""
     cfg = JaxCfg(num_classes=8, compound_coef=0)
     model = JaxSeg(cfg)
     frames = np.random.default_rng(10).integers(0, 256, (2, H, W, 3), dtype=np.uint8)
@@ -43,13 +45,18 @@ def slice_case():
         variables, jnp.asarray(frames))
     anchors = j_generate_anchors(H, W, pyramid_levels=cfg.pyramid_levels,
                                  anchor_scale=cfg.anchor_scale)
-    dcfg = jd.DecodeConfig(kp_th=2000)
+    dcfg = jd.DecodeConfig(kp_th=2000, exact_topk=exact_topk)
     dets = jax.jit(lambda o: jd.decode_output(o, jnp.asarray(anchors), 2 * H, 2 * W,
                                               2.0, dcfg))(outputs)
     pred = Predictor(EfficientSegConfig(num_classes=8, compound_coef=0),
-                     td.DecodeConfig(kp_th=2000), variables, torch.device("cpu"),
-                     orig_hw=(2 * H, 2 * W), scale=2.0)
+                     td.DecodeConfig(kp_th=2000, exact_topk=exact_topk), variables,
+                     torch.device("cpu"), orig_hw=(2 * H, 2 * W), scale=2.0)
     return frames, [np.array(o) for o in outputs], dets, pred
+
+
+@pytest.fixture(scope="module")
+def slice_case():
+    return make_slice_case()
 
 
 def test_predictor_model_matches_jax(slice_case):
@@ -108,6 +115,11 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
         "import instance_segmentation_torch.utils.visualize, instance_segmentation_torch.utils.meters\n"
         "import instance_segmentation_torch.utils.logger, instance_segmentation_torch.utils.checkpoint\n"
         "import instance_segmentation_torch.tools.make_synthetic_cityscapes\n"
+        "import instance_segmentation_torch.tools.profile_infer\n"
+        "import instance_segmentation_torch.tools.profile_decode\n"
+        "import instance_segmentation_torch.tools.profile_infer_blocks\n"
+        "import instance_segmentation_torch.tools.profile_blocks\n"
+        "import instance_segmentation_torch.tools.bench_train_data\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'PIL',\n"
         "                                    'orbax', 'instance_segmentation_tpu'))\n"
