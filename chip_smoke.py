@@ -186,6 +186,17 @@ Phases, one result line each; any failure raises and exits non-zero:
      the stall share, K2-K5 once a step (held); (e) ``tools/profile_infer
      --trace`` at b1 as a subprocess: the top 10 kernels and the device's
      idle share of the traced request (device kernels required).
+ 19. (run before 15) the roofline through ``tools/roofline``, each run a
+     process of its own (its profiler window early in its process), at
+     EfficientSeg-B3 bf16 on seeded weights: the train step at 512x1024 b8
+     (M=96, P=1024, Adam 2e-5; K2-K5), forward + decode at b8 (``--eval``;
+     K1) and the full-resolution step at 1024x2048 b4 (``--fullres``; K6,
+     K3-K5), 5 traced calls each: the top rows by operation (by block for
+     the eval run) and the JSON line (step ms, model FLOPs, mfu, the sum of
+     the joined kernels' least times against the device's busy time); each
+     run must join at least 90% of its device kernel time to counted
+     operations, and each kernel of its path must appear with its launches
+     and the bytes ``kernels/bounds.py`` gives it.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -200,7 +211,7 @@ counts K1 over each CLI run, phase 14 every kernel over each train run, and
 phase 16 K1 over each CLI run and the coef-8 requests and every kernel over
 its train run; phase 17 K1-K5 over the capstone and K1 over one call of the
 exported program; phase 18 K1 over each profiled decode and K2-K5 over the
-from-disk steps.
+from-disk steps; phase 19 each kernel over each roofline run's traced calls.
 Phase 15, the last, stops the data workers' fork server and fails if a process this
 script started (its descendants, multiprocessing's resource tracker aside:
 it ends with this process) is still alive. The
@@ -239,7 +250,7 @@ from instance_segmentation_torch.data.cityscapes import CityscapesDataset, parse
 from instance_segmentation_torch.data.packed_dataset import PackedCityscapesDataset
 from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
 from instance_segmentation_torch.evaluation import device_iou, eval_loop
-from instance_segmentation_torch.kernels import ae_terms, affinity, build, minr2, rasterize
+from instance_segmentation_torch.kernels import ae_terms, affinity, bounds, build, minr2, rasterize
 from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.models.efficientseg import INPUT_SIZES
@@ -271,8 +282,6 @@ FULLRES_SHAPE = (1, 96, 1024, 1024, 2048)  # B, M, P, H, W: tools/fullres_demo.p
 FULLRES_RUNS = (("--batch", "1"), ("--batch", "1", "--remat"), ("--batch", "4"),
                 ("--batch", "4", "--remat"), ("--batch", "4", "--ae-window", "256", "512"))
 FULLRES_ITERS = 3
-HBM_BYTES_PER_MS = 3.35e9                # H100 SXM: 3.35 TB/s
-F32_OPS_PER_MS = 67e9                    # H100 SXM: 67 TFLOP/s float32 (no tensor cores)
 KERNELS = ("affinity", "rasterize", "ae_terms")
 EVAL_IMAGES, EVAL_HW, EVAL_BATCHES = 8, (1024, 2048), (2, 8)
 EVAL_INPUT, EVAL_COMPOUND = (512, 1024), 3   # eval_cfg.yaml's input at scale 2, B3
@@ -465,13 +474,6 @@ def own_text(own) -> str:
             f"own)")
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(least time in ms, "bytes" or "operations"): the bytes over the card's
-    memory rate against the float32 operations over its float32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / F32_OPS_PER_MS
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -517,14 +519,10 @@ def hold_affinity(phase: int, what: str, inputs, strict: bool = True) -> dict:
     lists = culled_lists(kp_rc, boxes, det_valid)
     contained = int(affinity.contained_plain(kp_rc, boxes, det_valid).sum())
     valid_pairs = k * int(det_valid.sum())
-    # reads row/col, embedding and sigma (24 B) and writes assign and best
-    # (8 B) per keypoint, and the center table; the work the function needs:
-    # a containment test (4 compares) per (keypoint, valid center) pair, and
-    # per contained pair 2 sub, 4 mul, 1 add, 1 neg, 1 exp and the max (10)
-    n_bytes = b * k * (24 + 8) + b * d * (8 + 16 + 1)
-    bound_ms, bound_by = bound(n_bytes, 4 * valid_pairs + 10 * contained)
+    work = bounds.affinity_assign(*inputs)
+    bound_ms, bound_by = bounds.bound(*work)
     # the earlier bound: 14 operations for every (keypoint, center) pair
-    old_ms, old_by = bound(n_bytes, b * k * d * 14)
+    old_ms, old_by = bounds.bound(work.bytes, b * k * d * 14)
     print(f"[{phase}] K1 vs twin (CPU) B,K,D={(b, k, d)}, {what}: assign mismatches "
           f"{cmp['mismatch']} (near ties {cmp['near']}, exact ties {cmp['exact_ties']}; all "
           f"agree outside near ties), keypoints in no box {cmp['in_no_box']}, {contained} "
@@ -668,23 +666,6 @@ def phase_slice(dev: torch.device, smi: str):
     return launches, served
 
 
-def visited_tiles(tab: torch.Tensor, cntp: torch.Tensor, h: int, w: int):
-    """(tile-instance pairs K3/K4 visit, tiles holding samples, tiles with at
-    least one visited pair): the kernels' skip rule, for their byte and
-    operation counts."""
-    nh, nw = ae_terms.num_tiles(h, w)
-    r0 = (torch.arange(nh, device=tab.device) * ae_terms.TILE_H).view(nh, 1).float()
-    c0 = (torch.arange(nw, device=tab.device) * ae_terms.TILE_W).view(1, nw).float()
-    t = tab[..., None, None]
-    win = ((t[:, :, ae_terms.VALID] > 0) & (t[:, :, ae_terms.LT0] < r0 + ae_terms.TILE_H)
-           & (t[:, :, ae_terms.RB0] > r0) & (t[:, :, ae_terms.LT1] < c0 + ae_terms.TILE_W)
-           & (t[:, :, ae_terms.RB1] > c0))
-    present = ae_terms.presence_dense(cntp, tab.shape[1])
-    visited = win.flatten(2) | present
-    return (int(visited.sum()), int(present.any(dim=1).sum()),
-            int(visited.any(dim=1).sum()))
-
-
 def phase_train_kernels(dev: torch.device) -> list:
     """K2, K5, K3, K4 against their twins at the train cell's shapes; returns
     their records (launches filled in by the training slice)."""
@@ -716,9 +697,7 @@ def hold_rasterizer(phase: int, shape, t) -> tuple:
     ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
     plain_ms = cuda_median_ms(lambda: rasterize.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w))
     alone = own_time(lambda: rasterize.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
-    # reads the point list once, writes cnt (2 B), r2 (1 B) and the union;
-    # its work is integer counting and min, no float32 operations
-    bound_ms, bound_by = bound(b * m * p * 9 + b * m * h * w * 3 + b * h * w, 0)
+    bound_ms, bound_by = bounds.bound(*bounds.rasterize_cnt_r2(t.points, t.pt_valid, h, w))
     print(f"[{phase}] K2 rasterize_cnt_r2 B,M,P,H,W={shape} ({live} of {b * m} slots live, "
           f"{int(t.pt_valid.sum())} samples): cnt, r2, union bitwise equal to the twin; "
           f"wrapper {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
@@ -774,10 +753,8 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     nrm = t.normals[t.pt_valid].contiguous()
     buf = torch.zeros((b * h * w, 2), dtype=torch.float32, device=dev)
     library_ms = cuda_median_ms(lambda: buf.index_add_(0, flat, nrm))
-    # reads pt_valid once and the point (8 B) and normal (8 B) of each valid
-    # sample, writes two f32 planes; one add per channel and valid sample
-    n_samples = int(t.pt_valid.sum())
-    bound_ms, bound_by = bound(b * m * p + 16 * n_samples + 2 * b * h * w * 4, 2 * n_samples)
+    bound_ms, bound_by = bounds.bound(*bounds.rasterize_nmap(t.points, t.pt_valid, t.normals,
+                                                             h, w))
     print(f"[{phase}] K5 rasterize_nmap {where}: max|kernel - twin| {err:.3g} (rtol 1e-5, "
           f"atol 1e-5), bitwise equal to the CPU twin and across two launches; wrapper "
           f"{ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
@@ -816,16 +793,8 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
         plain_ms = cuda_median_ms(lambda: ae_terms.ae_terms_plain(*fields, *rest))
     alone = own_time(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
     split = kernel_timing.device_split(lambda: ae_terms.ae_terms_fwd(*fields, *rest))
-    pairs, any_tiles, tiles = visited_tiles(tab, cntp, h, w)
-    tile_px = ae_terms.TILE_H * ae_terms.TILE_W
-    n_valid = int(t.inst_valid.sum()) // b
-    # reads the 4 fields in the tiles with a visited pair (the others are
-    # skipped whole) and 3 B per pixel of each visited (tile, instance)
-    # slab; per visited pixel ~21 operations (affinity 9, clip 2, neg term 6,
-    # pull 4), per pixel of a sample tile and valid center 10 (dmax)
-    table_bytes = b * m * 8 * 4 + 256 * 4 + cntp.numel() * 4
-    bound_ms, bound_by = bound(4 * tiles * tile_px * 4 + pairs * tile_px * 3 + table_bytes,
-                               pairs * tile_px * 21 + any_tiles * tile_px * n_valid * 10)
+    pairs, any_tiles, tiles = bounds.visited_tiles(tab, cntp, h, w)
+    bound_ms, bound_by = bounds.bound(*bounds.ae_terms_fwd(*fields, *rest))
     print(f"[{phase}] K3 ae_terms forward {where}: {pairs} (tile, instance) pairs visited of "
           f"{b * m * cntp.shape[1]}, {tiles} tiles of {b * cntp.shape[1]} visited, {any_tiles} "
           f"sample tiles; max|kernel - twin| {err:.3g} (rtol 1e-5), bitwise equal across two "
@@ -865,11 +834,7 @@ def hold_loss_kernels(dev: torch.device, phase: int, shape, t, cnt: torch.Tensor
     ms = cuda_median_ms(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
     plain_ms = cuda_median_ms(lambda: torch.autograd.grad(objective, fields2, retain_graph=True))
     alone = own_time(lambda: ae_terms.ae_terms_bwd(*full, *rest, *cot))
-    # reads the 4 fields, writes 4 gradient planes, 3 B per visited slab
-    # pixel; per visited pixel ~51 operations, per sample-tile pixel 10 per
-    # valid center (argmax) and 21 for the argmax center's term
-    bound_ms, bound_by = bound(8 * b * h * w * 4 + pairs * tile_px * 3 + table_bytes,
-                               pairs * tile_px * 51 + any_tiles * tile_px * (n_valid * 10 + 21))
+    bound_ms, bound_by = bounds.bound(*bounds.ae_terms_bwd(*full, *rest, *cot))
     print(f"[{phase}] K4 ae_terms backward {where} (images {sub.tolist()}): max|kernel - twin "
           f"autograd| {err:.3g} (<= 1e-4 max|g|), autograd.Function equal; wrapper {ms:.4f} ms "
           f"at B={b}, twin backward {plain_ms:.4f} ms at B={len(sub)}, bound {bound_ms:.4f} ms "
@@ -995,9 +960,7 @@ def phase_minr2(dev: torch.device) -> dict:
         padding = torch.zeros_like(has)
         fill_ms, _ = kernel_timing.own_ms(lambda: minr2.minr2_from_cnt(cnt, padding))
         live = int(has.sum())
-        # reads the live slabs' counts (2 B/px) and has, writes r2 for every
-        # slab (1 B/px); its work is integer min, no float32 operations
-        bound_ms, bound_by = bound(2 * live * h * w + b * m * h * w + b * m, 0)
+        bound_ms, bound_by = bounds.bound(*bounds.minr2_from_cnt(cnt, has))
         print(f"[10] K6 minr2_from_cnt {name} B,M,P,H,W={(b, m, p, h, w)} ({live} of {b * m} "
               f"slabs live): bitwise equal to the twin; wrapper {ms:.4f} ms, twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median of 20); "
@@ -2361,6 +2324,54 @@ def phase_tools_process() -> None:
               "[18] (e) the trace holds no device kernels")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the roofline of the train step, of serving and of the
+# full-resolution step
+# ---------------------------------------------------------------------------
+
+ROOFLINE_RUNS = (  # (label, flags, the kernels of its path)
+    ("train b8", ("--batch", "8"),
+     ("rasterize_cnt_r2", "rasterize_nmap", "ae_terms_fwd", "ae_terms_bwd")),
+    ("eval b8", ("--eval", "--batch", "8", "--by", "block"), ("affinity_assign",)),
+    ("fullres b4", ("--fullres", "--batch", "4"),
+     ("minr2_from_cnt", "ae_terms_fwd", "ae_terms_bwd", "rasterize_nmap")))
+ROOFLINE_ITERS = 5
+ROOFLINE_MATCHED = 0.9               # the least share of device kernel time joined
+PHASE19_TIMEOUT = 600.0              # seconds for each run's process
+
+
+def phase_roofline() -> None:
+    """Phase 19: ``tools/roofline`` on the card, each run in a process of its
+    own; fails unless a run joins ``ROOFLINE_MATCHED`` of its device kernel
+    time and launches each kernel of its path with ``kernels/bounds.py``'s
+    bytes."""
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, flags, kernels in ROOFLINE_RUNS:
+        out = subprocess.run(
+            [sys.executable, "-m", "instance_segmentation_torch.tools.roofline", *flags,
+             "--iters", str(ROOFLINE_ITERS), "--top", "15"],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=PHASE19_TIMEOUT)
+        check(out.returncode == 0, f"[19] roofline {label} failed: {out.stderr[-3000:]}")
+        lines = out.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"[19] ({label}) {line}", flush=True)
+        rec = json.loads(lines[-1])
+        print(f"[19] ({label}) {lines[-1]}", flush=True)
+        check(rec["matched_share"] is not None and rec["matched_share"] >= ROOFLINE_MATCHED,
+              f"[19] roofline {label}: joined {rec['matched_share']} of the kernel time")
+        for name in kernels:
+            k = rec["kernels"].get(name)
+            check(k is not None and k["launches"] > 0 and k["calls"] > 0
+                  and len(k["bytes"]) == k["calls"] and min(k["bytes"]) > 0,
+                  f"[19] roofline {label}: {name} not launched with its bytes: {k}")
+        check(all(rec[key] is not None for key in ("model_flops", "mfu", "bound_ms", "busy_ms")),
+              f"[19] roofline {label}: a measure is missing")
+    print(f"[19] phase 19 took {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def descendants() -> list:
     """(pid, command) of every live process below this one, from ``/proc``."""
     parent, command = {}, {}
@@ -2437,6 +2448,7 @@ def main() -> None:
     phase_coco(dev, smi)
     phase_last_modules(dev, smi)
     phase_tools()
+    phase_roofline()
     phase_processes()
 
     print(json.dumps({"kernels": [record] + records + [k6_record]}))

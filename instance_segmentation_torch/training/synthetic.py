@@ -13,9 +13,12 @@ import numpy as np
 
 
 def bench_train_batch(b: int, m: int, h: int, w: int, seed: int = 0,
-                      edge_cases: bool = False) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
-    """(frames uint8 [b, h, w, 3], (polys f32 [b, m, 8, 2], n_verts, cls_ids)).
-    With ``edge_cases`` instance 16 of image 0 is a rectangle reaching 500 px
+                      edge_cases: bool = False, n_real: int = 16
+                      ) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
+    """(frames uint8 [b, h, w, 3], (polys f32 [b, m, 8, 2], n_verts, cls_ids)):
+    per image ``n_real`` octagons centred at least 80 rows and 120 columns
+    from the borders (a quarter of the side on frames under 320x480). With
+    ``edge_cases`` instance 16 of image 0 is a rectangle reaching 500 px
     past the left border and the last image has no labels."""
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 255, (b, h, w, 3), dtype=np.uint8)
@@ -23,14 +26,15 @@ def bench_train_batch(b: int, m: int, h: int, w: int, seed: int = 0,
     n_verts = np.zeros((b, m), np.int32)
     cls_ids = np.full((b, m), -1, np.int32)
     ang = np.linspace(0, 2 * np.pi, 9)[:-1]
+    my, mx = min(80, h // 4), min(120, w // 4)
     for i in range(b):
-        for j in range(16):
-            cy, cx = rng.uniform(80, h - 80), rng.uniform(120, w - 120)
+        for j in range(n_real):
+            cy, cx = rng.uniform(my, h - my), rng.uniform(mx, w - mx)
             rh, rw = rng.uniform(20, 70), rng.uniform(30, 100)
             polys[i, j] = np.stack([cy + rh * np.sin(ang), cx + rw * np.cos(ang)], -1)
             n_verts[i, j] = 8
             cls_ids[i, j] = rng.integers(0, 8)
-        polys[i, 16:] = polys[i, 0, 0]
+        polys[i, n_real:] = polys[i, 0, 0]
     if edge_cases:
         polys[0, 16] = [[200, 60], [260, 60], [260, -500], [200, -500]] * 2
         n_verts[0, 16], cls_ids[0, 16] = 4, 2
