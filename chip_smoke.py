@@ -197,6 +197,22 @@ Phases, one result line each; any failure raises and exits non-zero:
      run must join at least 90% of its device kernel time to counted
      operations, and each kernel of its path must appear with its launches
      and the bytes ``kernels/bounds.py`` gives it.
+ 20. (run after 12) the spatial (image-W) mesh axis of serving through
+     ``tools/multichip.py --infer``'s ranks, spawned as in phase 12: (a) two
+     ranks on the one card over gloo, data 1 x spatial 2, the dry run's
+     protocol (EfficientSeg-B0 f32 at 128x256, 2 frames, small decode): the
+     gathered outputs within ``HEADS_REL_F32`` of each rank's one-rank
+     forward, the decode equal to the one-rank decode (obj_valid, classes,
+     boxes to 1e-3, more than 0 objects), K1 once a decoded batch, and K1
+     held against its twin on the CPU on rank 0's gathered maps; (b) the
+     same two ranks at full width, EfficientSeg-B3 bf16 at 512x1024, b1 and
+     b8, 1 + 5 ``Predictor.predict`` calls: ms per call (two ranks share a
+     card through the host: a correctness run), peak memory, collectives
+     per forward, K1 launches, each output within ``HEADS_REL_BF16`` of
+     max|.| of the one-rank forward, both decodes' object counts; (c) on
+     every card over NCCL (S = the card count) when there are two or more,
+     the same full-width run beside phase 5's one-card numbers; on one card
+     it says so.
 
 Beside every timed wrapper (phases 3, 5, 7 and 10) ``kernel_timing.py``
 gives the kernel's own device time per call (its C entry point called
@@ -211,7 +227,8 @@ counts K1 over each CLI run, phase 14 every kernel over each train run, and
 phase 16 K1 over each CLI run and the coef-8 requests and every kernel over
 its train run; phase 17 K1-K5 over the capstone and K1 over one call of the
 exported program; phase 18 K1 over each profiled decode and K2-K5 over the
-from-disk steps; phase 19 each kernel over each roofline run's traced calls.
+from-disk steps; phase 19 each kernel over each roofline run's traced calls;
+phase 20's ranks count K1 over their own calls.
 Phase 15, the last, stops the data workers' fork server and fails if a process this
 script started (its descendants, multiprocessing's resource tracker aside:
 it ends with this process) is still alive. The
@@ -235,6 +252,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -598,28 +616,13 @@ def phase_decode(dev: torch.device, cfg: DecodeConfig = SCENE_DECODE, tag: str =
           f"int/bool fields, floats max|diff| {worst:.3g} (tol 1e-5)", flush=True)
 
 
-@contextlib.contextmanager
-def first_k1_inputs():
-    """While open, the decode's K1 calls go through a wrapper that keeps a
-    copy of the first call's inputs in the list it yields (the wrapper
-    launches K1 as the decode would, and counts as it)."""
-    kept = []
-
-    def capture(*args):
-        if not kept:
-            kept.extend(a.clone() for a in args)
-        return affinity.affinity_assign(*args)
-    decode.affinity_assign = capture
-    try:
-        yield kept
-    finally:
-        decode.affinity_assign = affinity.affinity_assign
+first_k1_inputs = multichip.first_k1_inputs
 
 
 def phase_slice(dev: torch.device, smi: str):
     """B3 512x1024 bf16 Predictor: 3 requests at b1 and 3 at b8. Returns the
-    number of K1 launches made by those requests and the inputs K1 got in
-    the first b8 call (a warm-up)."""
+    number of K1 launches made by those requests, the inputs K1 got in the
+    first b8 call (a warm-up) and the median ms per batch and peak memory."""
     cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
     dcfg = DecodeConfig()
     pred = Predictor(cfg, dcfg, torch.Generator().manual_seed(0), dev,
@@ -642,6 +645,7 @@ def phase_slice(dev: torch.device, smi: str):
         times[b].append(time.perf_counter() - t0)
         results.append((b, dets))
     launches = affinity.launches
+    medians = {b: 1e3 * float(np.median(t)) for b, t in times.items()}
 
     for b, dets in results:
         check(tuple(dets.boxes.shape) == (b, dcfg.max_dets, 4), "boxes shape")
@@ -663,7 +667,7 @@ def phase_slice(dev: torch.device, smi: str):
     print(f"[5] K1 launches in the 6 requests: {launches}; detections {n_det}, "
           f"objects {n_obj}; peak device memory {peak} B ({peak / 2**30:.2f} GiB); "
           f"[{smi}]", flush=True)
-    return launches, served
+    return launches, served, {"ms": medians, "peak_bytes": peak}
 
 
 def phase_train_kernels(dev: torch.device) -> list:
@@ -2372,6 +2376,73 @@ def phase_roofline() -> None:
     print(f"[19] phase 19 took {time.perf_counter() - start:.1f} s", flush=True)
 
 
+def spatial_line(r: dict, b: dict, smi: str) -> str:
+    """One full-width batch of a rank of phase 20 (b) or (c)."""
+    ms = b["ms"]
+    rel = ", ".join(f"{k} {v:.3g}" for k, v in b["heads_rel"].items())
+    return (f"rank {r['rank']} of mesh data {r['mesh'][0]} x spatial {r['mesh'][1]} "
+            f"({r['device']}), B3 512x1024 bf16 b{b['batch']}: ms/call "
+            f"{[round(t, 3) for t in ms]} (median {np.median(ms):.3f}), peak device memory "
+            f"{b['peak_bytes']} B ({b['peak_bytes'] / 2**30:.2f} GiB), collectives per forward "
+            f"{b['collectives']} ({sum(b['collectives'].values())}), K1 launches "
+            f"{b['k1_launches']} in {multichip.INFER_ITERS} calls; outputs against the one-rank "
+            f"forward, max|diff| / max|.|: {rel} (<= {multichip.HEADS_REL_BF16}); objects "
+            f"{b['objects']} on the mesh, {b['objects_one_rank']} on one rank; [{smi}]")
+
+
+def phase_spatial(smi: str, one_card: Optional[dict]) -> None:
+    """Phase 20: serving on a spatial mesh. (a) the dry run's check on two
+    ranks of the one card over gloo, K1 held on rank 0's gathered maps;
+    (b) those ranks at full width; (c) every card over NCCL when there are
+    two or more, beside phase 5's ``one_card`` numbers."""
+    start = time.perf_counter()
+    smi = smi.replace("\n", "; ")           # one line for every card
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = spawn_ranks(2, ["--infer", "--check", "--device-type", "cuda", "--backend",
+                              "gloo"], one_card=True)
+    for r in results:
+        check(not r["failures"], f"[20a] rank {r['rank']}: {r['failures']}")
+        rel = ", ".join(f"{k} {v:.3g}" for k, v in r["heads_rel"].items())
+        print(f"[20a] rank {r['rank']}/2 on one card over gloo, data 1 x spatial 2, B0 128x256 "
+              f"f32, {r['frames']} frames: outputs against the one-rank forward, max|diff| / "
+              f"max|.|: {rel} (<= {multichip.HEADS_REL_F32}); decode equal to the one-rank "
+              f"decode (obj_valid, classes, boxes within {multichip.BOXES_ATOL}): {r['objects']} "
+              f"objects; collectives per forward {r['collectives']}; K1 launches "
+              f"{r['k1_launches']} for one decoded batch", flush=True)
+    dets = [r["dets"] for r in results]
+    check(all(torch.equal(a, b) for a, b in zip(*dets)),
+          "[20a] the two spatial ranks' detections differ")
+    dev = torch.device("cuda")
+    hold_affinity(20, "rank 0's gathered maps, data 1 x spatial 2",
+                  [t.to(dev) for t in results[0]["k1_inputs"]])
+
+    results = spawn_ranks(2, ["--infer", "--device-type", "cuda", "--backend", "gloo"],
+                          one_card=True)
+    for r in results:
+        check(not r["failures"], f"[20b] rank {r['rank']}: {r['failures']}")
+        for b in r["batches"]:
+            print("[20b] two ranks on one card over gloo (a correctness run: the ranks share "
+                  "the card through the host), " + spatial_line(r, b, smi), flush=True)
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[20c] NCCL over the spatial axis needs two cards; this machine has {cards}",
+              flush=True)
+    else:
+        results = spawn_ranks(cards, ["--infer", "--spatial", str(cards), "--device-type",
+                                      "cuda", "--backend", "nccl"])
+        for r in results:
+            check(not r["failures"], f"[20c] rank {r['rank']}: {r['failures']}")
+            for b in r["batches"]:
+                beside = ("" if one_card is None else
+                          f" (phase 5, one card: median {one_card['ms'][b['batch']]:.3f} ms, "
+                          f"peak {one_card['peak_bytes'] / 2**30:.2f} GiB)")
+                print(f"[20c] {cards} cards over NCCL, " + spatial_line(r, b, smi) + beside,
+                      flush=True)
+    print(f"[20] phase 20 took {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def descendants() -> list:
     """(pid, command) of every live process below this one, from ``/proc``."""
     parent, command = {}, {}
@@ -2423,7 +2494,7 @@ def main() -> None:
 
     phase_affinity(dev)
     phase_decode(dev)
-    launches, served = phase_slice(dev, smi)
+    launches, served, one_card = phase_slice(dev, smi)
     record = hold_affinity(5, "the serving slice's first b8 call", served)
     record["launches"] = launches
 
@@ -2443,6 +2514,7 @@ def main() -> None:
     k6_record = phase_minr2(dev)
     k6_record["launches"] = phase_fullres_slice(smi)
     phase_data_parallel(smi, train_ms)
+    phase_spatial(smi, one_card)
     phase_eval_slice(dev, smi)
     phase_train_cli(dev, smi)
     phase_coco(dev, smi)

@@ -12,7 +12,11 @@ stride-2 block, and the final block output. In training, block ``idx`` of
 its identity skip, drawn from the backbone's ``generator`` (torch's default
 generator when None). With ``quant`` the MBConv expand and project convs
 take the int8 path outside training (reference ``quant``; SE, depthwise and
-stem convs stay in the compute dtype).
+stem convs stay in the compute dtype). Under a spatial mesh
+(``parallel/spatial.sharded``) the blocks take W slabs: the stem and
+depthwise convs exchange halos (``models/layers.py``) and each
+squeeze-and-excitation mean is the float32 sum of the slabs over the
+spatial group, divided by the global H * W.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch import nn
 from instance_segmentation_torch.models.layers import (
     BatchNorm, Conv2dSame, depthwise_conv, drop_connect, swish,
 )
+from instance_segmentation_torch.parallel import spatial
 
 
 @dataclass(frozen=True)
@@ -139,7 +144,9 @@ class MBConv(nn.Module):
             x = swish(self._bn0(self._expand_conv(x)))
         x = swish(self._bn1(self._depthwise_conv(x)))
         if self.has_se:
-            s = x.mean(dim=(2, 3), keepdim=True)
+            mesh = spatial.active()
+            s = (x.mean(dim=(2, 3), keepdim=True) if mesh is None
+                 else spatial.spatial_mean(x, mesh))
             s = self._se_expand(swish(self._se_reduce(s)))
             x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))

@@ -31,6 +31,16 @@ the forward (the backbone generator is rewound for it), so a step with
 ``cfg.quant == "int8"`` (reference ``quant``) runs the MBConv expand and
 project convs and the U-Net's 3x3 convs through the int8 path outside
 training (``layers.int8_conv2d``), with the float model's parameters.
+
+Under a spatial mesh (``parallel/spatial.sharded(mesh)``, S > 1 spatial
+ranks) the forward takes this rank's W slab of the frames
+(``parallel/mesh.batch_shard``): the backbone and the U-Net run on slabs
+(halo-exchanged convs, squeeze-and-excitation means summed over the
+group), P3..P5 are gathered (``pin_data_sharding``) and the BiFPN and the
+box heads run whole on every rank, and kp/ae/tan are gathered along W. It
+returns the five outputs of the whole frames, in the layouts above, on
+every rank of the group. That is the JAX package's W-sharded eval forward;
+training, ``remat`` and ``quant`` raise under it.
 """
 
 from __future__ import annotations
@@ -48,8 +58,11 @@ from instance_segmentation_torch.models.efficientnet import (
     EfficientNetFeatures, feature_channels,
 )
 from instance_segmentation_torch.models.heads import Classifier, Regressor
-from instance_segmentation_torch.models.layers import cast_convs
+from instance_segmentation_torch.models.layers import (
+    Conv2d, Conv2dSame, cast_convs, pin_data_sharding,
+)
 from instance_segmentation_torch.models.unet_decoder import UNetDecoder
+from instance_segmentation_torch.parallel import spatial
 
 # Per-compound-coefficient scaling tables (same as the reference).
 BACKBONE_COEF = [0, 1, 2, 3, 4, 5, 6, 6, 7]
@@ -158,6 +171,9 @@ class EfficientSeg(nn.Module):
         self.register_buffer("pixel_std", torch.tensor(cfg.std) * 255.0,
                              persistent=False)
         cast_convs(self, param_dtype or cfg.compute_dtype)
+        for name, m in self.named_modules():
+            if isinstance(m, (Conv2d, Conv2dSame)):
+                m.layer_name = name         # for the W-split path's errors
         self.eval()
 
     def input_tensor(self, images: torch.Tensor) -> torch.Tensor:
@@ -167,6 +183,9 @@ class EfficientSeg(nn.Module):
         return x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
 
     def forward(self, images: torch.Tensor):
+        mesh = spatial.active()
+        if mesh is not None:
+            return self._forward_spatial(images, mesh)
         x = self.input_tensor(images)
         backbone = self.backbone_net["model"]
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
@@ -182,4 +201,24 @@ class EfficientSeg(nn.Module):
             kp, ae, tan = (tuple(t.unbind(1)) for t in heads)
             return kp[0], ae, tan, regression, classification
         kp, ae, tan = (t.permute(0, 2, 3, 1) for t in heads)
+        return kp, ae, tan, regression, classification
+
+    def _forward_spatial(self, images: torch.Tensor, mesh):
+        """The eval forward of the whole frames from this rank's W slab
+        ``images`` [B, H, W / S, 3] (see the module docstring)."""
+        cfg = self.cfg
+        if self.training or cfg.remat or cfg.quant != "none":
+            raise ValueError("the spatial mesh axis serves the eval forward only: no training, "
+                             f"remat or quant (training={self.training}, remat={cfg.remat}, "
+                             f"quant={cfg.quant!r})")
+        x = self.input_tensor(images)
+        blocks = self.backbone_net["model"](x)
+        pyramid = [pin_data_sharding(b) for b in blocks[2:5]]
+        with spatial.sharded(None):             # the pyramid and box heads: whole, replicated
+            feats = self.bifpn(pyramid)
+            regression = self.regressor(feats).float()
+            classification = self.classifier(feats)
+        heads = self.kp_header(x, blocks)
+        dense = spatial.gather_w(torch.cat(heads, dim=1), mesh)
+        kp, ae, tan = (t.permute(0, 2, 3, 1) for t in dense.split([t.shape[1] for t in heads], 1))
         return kp, ae, tan, regression, classification

@@ -26,6 +26,13 @@ from float32 weights quantized per output channel and the input quantized
 per tensor, then dequantizes (``int8_conv2d``). Its parameters are those
 of the float conv, held in float32 (``cast_convs`` leaves them), so a float
 checkpoint or JAX tree loads unchanged.
+
+Under a spatial mesh (``parallel/spatial.sharded``) the convs with a W
+extent take their rank's W slab: TF-SAME pads come from the global width,
+the slab is padded with its neighbours' columns (``halo_exchange``), and
+the conv runs with no W padding of its own. 1x1 convs need nothing.
+``pin_data_sharding`` gathers a W-split map onto every rank of the spatial
+group, where the JAX package pins it to batch-only sharding.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from instance_segmentation_torch.parallel import spatial
 
 # Detector-side BN constants and U-Net BN constants (reference layers.py
 # BN_MOMENTUM_DET/BN_EPS_DET and BN_MOMENTUM_UNET/BN_EPS_UNET). Momentum is
@@ -120,7 +129,10 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose weight and bias are cast to the input dtype. With
     ``quant=True`` (a dense stride-1 conv) it runs ``int8_conv2d`` outside
-    training."""
+    training. Under a spatial mesh a (stride-1, SAME-padded: the U-Net's)
+    conv takes halos from its neighbours in place of its W padding."""
+
+    layer_name = "Conv2d"           # set to the module's path by EfficientSeg
 
     def __init__(self, *args, quant: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -131,11 +143,19 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant and not self.training:
             return int8_conv2d(x, self.weight, self.bias, self.padding[0])
+        mesh = spatial.active()
+        if mesh is not None and self.kernel_size[1] > 1:
+            left, right = spatial.conv_halo(x.shape[-1], self.kernel_size[1], 1,
+                                            self.padding[1], self.layer_name)
+            return F.conv2d(spatial.halo_exchange(x, left, right, mesh), self.weight.to(x.dtype),
+                            _cast(self.bias, x.dtype), 1, (self.padding[0], 0), 1, self.groups)
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` whose weight and bias are cast to the input dtype."""
+    """``nn.ConvTranspose2d`` whose weight and bias are cast to the input
+    dtype. The U-Net's (kernel = stride, no padding) need no halo on a W
+    slab: each output column reads one input column."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
@@ -147,6 +167,8 @@ class Conv2dSame(nn.Module):
     """2D conv with TF-SAME padding. The inner ``conv`` carries the reference
     torch state-dict names (``<name>.conv.weight``)."""
 
+    layer_name = "Conv2dSame"       # set to the module's path by EfficientSeg
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, bias: bool = True, quant: bool = False):
         super().__init__()
@@ -156,6 +178,9 @@ class Conv2dSame(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         k, s = conv.kernel_size[0], conv.stride[0]
+        mesh = spatial.active()
+        if mesh is not None and (k, s) != (1, 1):
+            return self._forward_slab(x, mesh)
         top, bottom = same_pads(x.shape[-2], k, s)
         left, right = same_pads(x.shape[-1], k, s)
         if top != bottom or left != right:
@@ -165,6 +190,32 @@ class Conv2dSame(nn.Module):
             return int8_conv2d(x, conv.weight, conv.bias, top)
         return F.conv2d(x, conv.weight.to(x.dtype), _cast(conv.bias, x.dtype), s,
                         (top, left), 1, conv.groups)
+
+    def _forward_slab(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """The conv of the whole image, cut at this rank's output columns,
+        from its W slab: pads from the global width, halos from the
+        neighbours (``spatial.conv_halo``)."""
+        conv = self.conv
+        k, s = conv.kernel_size[0], conv.stride[0]
+        width = x.shape[-1]
+        pad_left, _ = same_pads(width * mesh.spatial, k, s)
+        left, right = spatial.conv_halo(width, k, s, pad_left, self.layer_name)
+        if left or right:
+            x = spatial.halo_exchange(x, left, right, mesh)
+        top, bottom = same_pads(x.shape[-2], k, s)
+        if top != bottom:
+            x = F.pad(x, (0, 0, top, bottom))
+            top = 0
+        return F.conv2d(x, conv.weight.to(x.dtype), _cast(conv.bias, x.dtype), s,
+                        (top, 0), 1, conv.groups)
+
+
+def pin_data_sharding(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every rank of the spatial group when a spatial mesh is
+    active (its W slabs gathered), else ``x`` (reference
+    ``pin_data_sharding``)."""
+    mesh = spatial.active()
+    return x if mesh is None else spatial.gather_w(x, mesh)
 
 
 def depthwise_conv(channels: int, kernel_size: int, stride: int = 1) -> Conv2dSame:

@@ -12,7 +12,10 @@ Batch norm here uses the torch-default eps 1e-5 and flax momentum 0.9.
 With ``quant`` the 3x3 convs of every double conv take the int8 path
 outside training (reference ``quant``); transposed convs and heads do not.
 Attribute names follow the reference torch state dict (``up_conv1``,
-``double_conv1.0`` ...).
+``double_conv1.0`` ...). Under a spatial mesh it runs on W slabs of the
+image and of P1..P5: each 3x3 conv takes halos of one column
+(``layers.Conv2d``); the 2x2 stride-2 transposed convs and the
+concatenations need none.
 """
 
 from __future__ import annotations

@@ -4,17 +4,27 @@ uint8 frames with decoded instances.
 Counterpart of the closed-over ``infer`` of the JAX package's ``bench.py``
 and ``test.py``: EfficientSeg eval forward, then the full decode, with the
 weights and anchors fixed at construction.
+
+Given a (data, spatial) mesh (``parallel/mesh.make_mesh``), every rank of
+it builds the same predictor and is called with the same global frame
+batch: it serves its data slice, the model running on its W slab with the
+halo exchanges and gathers of ``parallel/spatial.py``, and returns that
+slice's detections. Every rank of a spatial group decodes the same
+gathered maps and so returns the same detections. This is the counterpart
+of the JAX package's inference under a ``data x spatial`` mesh.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.ops.decode import DecodeConfig, Detections, forward_and_decode
+from instance_segmentation_torch.parallel import spatial
+from instance_segmentation_torch.parallel.mesh import Mesh, batch_shard
 from instance_segmentation_torch.weights import init_random, load_flax_variables
 
 
@@ -23,13 +33,15 @@ class Predictor:
     (numpy leaves), or a CPU ``torch.Generator`` for seeded untrained
     weights. Frames are [B, H, W, 3] uint8 at the model input size
     ``orig_hw / scale``; detections come back at ``orig_hw``. ``cfg.quant``
-    "int8" serves through the int8 path."""
+    "int8" serves through the int8 path. With a ``mesh`` (on ``device``)
+    ``predict`` serves this rank's share of the frames."""
 
     def __init__(self, cfg: EfficientSegConfig, decode_cfg: DecodeConfig,
                  weights: Union[Mapping, torch.Generator], device: torch.device,
-                 orig_hw: Tuple[int, int], scale: float):
+                 orig_hw: Tuple[int, int], scale: float, mesh: Optional[Mesh] = None):
         self.cfg, self.decode_cfg = cfg, decode_cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.orig_hw, self.scale = tuple(orig_hw), float(scale)
         self.input_hw = tuple(int(round(s / self.scale)) for s in self.orig_hw)
         model = EfficientSeg(cfg)
@@ -45,11 +57,15 @@ class Predictor:
 
     @torch.inference_mode()
     def predict(self, frames: Union[np.ndarray, torch.Tensor]) -> Detections:
-        """[B, H, W, 3] uint8 frames -> Detections on the predictor's device."""
+        """[B, H, W, 3] uint8 frames -> Detections on the predictor's device
+        (with a mesh: of this rank's data slice of the B frames)."""
         images = torch.as_tensor(frames)
         if images.dtype != torch.uint8 or tuple(images.shape[1:]) != (*self.input_hw, 3):
             raise ValueError(f"want uint8 [B, {self.input_hw[0]}, {self.input_hw[1]}, 3] "
                              f"frames, got {images.dtype} {tuple(images.shape)}")
+        if self.mesh is not None:
+            images = batch_shard(images, self.mesh)
         images = images.to(self.device, non_blocking=True)
-        return forward_and_decode(self.model, images, self.anchors, self.orig_hw[0],
-                                  self.orig_hw[1], self.scale, self.decode_cfg)
+        with spatial.sharded(self.mesh):
+            return forward_and_decode(self.model, images, self.anchors, self.orig_hw[0],
+                                      self.orig_hw[1], self.scale, self.decode_cfg)

@@ -25,6 +25,27 @@ whether they are bitwise equal on every rank (the bounds are below); then a
 checkpoint round trip: save on rank 0, restore into a fresh trainer on
 every rank, and one more step against the trainer that went on.
 
+With ``--infer [--spatial S]``: serving under a (data, spatial) mesh,
+S ranks splitting the image W axis (default: every rank), the batch split
+over the N / S data rows (the counterpart of the inference half of
+``dryrun_multichip``):
+
+    torchrun --nproc_per_node N -m instance_segmentation_torch.tools.multichip --infer --spatial S [--check]
+
+Without ``--check``: EfficientSeg-B3 in bf16 at 512x1024 (a 1024x2048
+frame at scale 2), seeded weights, ``DecodeConfig()``, a ``Predictor`` on
+the mesh timed at global batch 1 and 8 (1 untimed call, then 5, host
+clock after a device sync); then the same frames through the model on
+the mesh and on this rank alone, each output's max|diff| over its max|.|
+(``HEADS_REL_BF16``) and both decodes' object counts. With ``--check``:
+the dry run's protocol at EfficientSeg-B0, float32, 128x256,
+``max(2, N)`` frames, ``CHECK_DECODE``: the mesh's outputs against this
+rank's one-rank forward of its data slice (``HEADS_REL_F32``), and the
+mesh's decode against the one-rank decode: ``obj_valid`` equal, classes
+equal on the valid objects, boxes within ``BOXES_ATOL``, more than 0
+objects. Each rank prints one JSON line: ms per call, peak memory,
+collectives per forward by kind, K1 launches and object counts.
+
 ``spawned`` runs the same from ``parallel.multihost.spawn`` (a rendezvous
 file instead of torchrun's variables), saving each rank's result.
 """
@@ -32,21 +53,30 @@ file instead of torchrun's variables), saving each rank's result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from instance_segmentation_torch.device import require_cuda
-from instance_segmentation_torch.kernels import ae_terms, minr2, rasterize
+from instance_segmentation_torch.kernels import ae_terms, affinity, minr2, rasterize
 from instance_segmentation_torch.models import EfficientSegConfig
+from instance_segmentation_torch.ops import decode
+from instance_segmentation_torch.ops.decode import DecodeConfig, Detections
+from instance_segmentation_torch.parallel import spatial
+from instance_segmentation_torch.parallel.mesh import (
+    Mesh, MeshSpec, batch_shard, data_shard, make_mesh,
+)
 from instance_segmentation_torch.parallel.multihost import maybe_initialize
+from instance_segmentation_torch.serve import Predictor
 from instance_segmentation_torch.training.synthetic import bench_train_batch, small_train_batch
 from instance_segmentation_torch.training.train_step import Trainer
 from instance_segmentation_torch.utils.checkpoint import CheckpointManager
@@ -71,11 +101,29 @@ COUNTERS = {"rasterize_cnt_r2": rasterize.launches, "rasterize_nmap": rasterize.
             "ae_terms_fwd": ae_terms.launches, "ae_terms_bwd": ae_terms.launches,
             "minr2_from_cnt": minr2.launches}
 
+# Serving under the mesh (--infer). Full width: B3 bf16 at the 1024x2048
+# serving size, batches 1 and 8, 1 untimed call and INFER_ITERS timed.
+INFER_ORIG_HW, INFER_SCALE, INFER_BATCHES, INFER_ITERS = (1024, 2048), 2.0, (1, 8), 5
+FULL_WIDTH = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
+# The check (--infer --check): the dry run's B0 float32 protocol.
+INFER_CHECK_HW = (128, 256)
+CHECK_DECODE = DecodeConfig(kp_th=256, pre_nms=64, max_dets=16, max_poly=64)
+BOXES_ATOL = 1e-3
+# max|mesh - one rank| over max|one rank|, per output. Float32: summation
+# order only (the SE sums, the convs of narrower slabs); bf16 (full width,
+# the card): a few roundings of the compute dtype.
+HEADS_REL_F32, HEADS_REL_BF16 = 1e-5, 3e-2
+OUTPUTS = ("kp", "ae", "tan", "regression", "classification")
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="the N-rank step against the 1-rank step (B0, 128x512, f32)")
+    ap.add_argument("--infer", action="store_true",
+                    help="serving under a (data, spatial) mesh instead of training")
+    ap.add_argument("--spatial", type=int, default=-1,
+                    help="with --infer: ranks splitting the image W axis (default: every rank)")
     ap.add_argument("--batch", type=int, default=8, help="global batch")
     ap.add_argument("--device-type", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--backend", default=None, help="nccl or gloo (default: nccl on cuda)")
@@ -265,12 +313,168 @@ def check_ok(results: Sequence[dict], resume: dict) -> List[str]:
     return bad
 
 
+@contextlib.contextmanager
+def first_k1_inputs():
+    """While open, the decode's K1 calls go through a wrapper that keeps a
+    copy of the first call's inputs in the list it yields (the wrapper
+    launches K1 as the decode would, and counts as it)."""
+    kept = []
+
+    def capture(*args):
+        if not kept:
+            kept.extend(a.clone() for a in args)
+        return affinity.affinity_assign(*args)
+    decode.affinity_assign = capture
+    try:
+        yield kept
+    finally:
+        decode.affinity_assign = affinity.affinity_assign
+
+
+def mesh_outputs(pred: Predictor, frames: np.ndarray) -> tuple:
+    """The five outputs of the predictor's model on the mesh, for this
+    rank's data slice of ``frames``."""
+    images = batch_shard(torch.as_tensor(frames), pred.mesh).to(pred.device)
+    with spatial.sharded(pred.mesh):
+        return pred.model(images)
+
+
+def one_rank(pred: Predictor, frames: np.ndarray) -> Tuple[tuple, Detections]:
+    """The outputs and the decode of this rank's data slice of ``frames``
+    by the predictor's model on this rank alone."""
+    images = data_shard(torch.as_tensor(frames), pred.mesh).to(pred.device)
+    outputs = pred.model(images)
+    return outputs, decode.decode_output(outputs, pred.anchors, *pred.orig_hw, pred.scale,
+                                         pred.decode_cfg)
+
+
+def heads_rel(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor]) -> Dict[str, float]:
+    """max|got - want| over max|want| for each of the five outputs."""
+    return {name: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            for name, g, w in zip(OUTPUTS, got, want)}
+
+
+def decode_differences(got: Detections, want: Detections) -> List[str]:
+    """The dry run's rule for two decodes: ``obj_valid`` equal, classes
+    equal on the valid objects, boxes within ``BOXES_ATOL``, more than 0
+    objects. Returns what fails (empty: equal)."""
+    bad = []
+    valid = want.obj_valid
+    if not torch.equal(got.obj_valid, valid):
+        bad.append(f"obj_valid differs at {int((got.obj_valid != valid).sum())} slots")
+        return bad
+    if int(valid.sum()) == 0:
+        bad.append("decode equality vacuous: 0 objects decoded")
+    if not torch.equal(got.classes[valid], want.classes[valid]):
+        bad.append("classes differ on the valid objects")
+    err = float((got.boxes[valid] - want.boxes[valid]).abs().max()) if bool(valid.any()) else 0.0
+    if err > BOXES_ATOL:
+        bad.append(f"boxes differ by {err:.3g} > {BOXES_ATOL}")
+    return bad
+
+
+def _reset_counts() -> None:
+    for kind in spatial.calls:
+        spatial.calls[kind] = 0
+    affinity.launches = 0
+
+
+def infer_check(mesh: Mesh, weights: Union[int, Mapping] = 0,
+                batch: Optional[int] = None) -> dict:
+    """The dry run's protocol on ``mesh`` (B0, float32, 128x256, ``batch``
+    frames from ``np.random.default_rng(0)``, default ``max(2, N)``,
+    ``CHECK_DECODE``): ``weights`` a seed or the JAX package's variable
+    tree. Returns this rank's record: the outputs' distances from the
+    one-rank forward, the decode's differences from the one-rank decode,
+    its objects, the collectives of one forward, K1's launches in one call,
+    the mesh's detections and K1's inputs on the gathered maps (on the
+    CPU), and the failures."""
+    world = mesh.data * mesh.spatial
+    h, w = INFER_CHECK_HW
+    batch = batch or max(2, world)
+    frames = np.random.default_rng(0).integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    cfg = EfficientSegConfig(num_classes=8, compound_coef=0)
+    seeded = isinstance(weights, int)
+    pred = Predictor(cfg, CHECK_DECODE, torch.Generator().manual_seed(weights) if seeded
+                     else weights, mesh.device, (2 * h, 2 * w), 2.0, mesh=mesh)
+    with torch.inference_mode():
+        want_out, want = one_rank(pred, frames)
+        _reset_counts()
+        with first_k1_inputs() as k1:
+            dets = pred.predict(frames)
+        collectives, launches = dict(spatial.calls), affinity.launches
+        rel = heads_rel(mesh_outputs(pred, frames), want_out)
+    bad = decode_differences(dets, want)
+    bad += [f"{k} differs by {v:.3g} of max|.| > {HEADS_REL_F32}" for k, v in rel.items()
+            if not v <= HEADS_REL_F32]
+    if mesh.device.type == "cuda" and launches != 1:
+        bad.append(f"K1 launched {launches} times for one decoded batch")
+    return {"rank": mesh.rank, "mesh": [mesh.data, mesh.spatial], "frames": len(frames),
+            "heads_rel": rel,
+            "objects": int(dets.obj_valid.sum()), "objects_one_rank": int(want.obj_valid.sum()),
+            "collectives": collectives, "k1_launches": launches,
+            "dets": Detections(*(t.cpu() for t in dets)),
+            "k1_inputs": [t.cpu() for t in k1], "failures": bad}
+
+
+def infer_full_width(mesh: Mesh, cfg: EfficientSegConfig = FULL_WIDTH,
+                     orig_hw: Tuple[int, int] = INFER_ORIG_HW,
+                     batches: Sequence[int] = INFER_BATCHES) -> dict:
+    """Serving ``cfg`` (EfficientSeg-B3 bf16) at ``orig_hw`` / 2 (512x1024)
+    on ``mesh``: per global batch of ``batches``, the ms of each of
+    ``INFER_ITERS`` ``predict`` calls after one untimed call, the peak
+    device memory over them, the collectives of one forward, K1's launches,
+    and the mesh's outputs and objects against this rank's one-rank forward
+    and decode."""
+    device = mesh.device
+    pred = Predictor(cfg, DecodeConfig(), torch.Generator().manual_seed(0), device,
+                     orig_hw, INFER_SCALE, mesh=mesh)
+    h, w = pred.input_hw
+    frames = np.random.default_rng(0).integers(0, 256, (max(batches), h, w, 3), dtype=np.uint8)
+    cuda = device.type == "cuda"
+    out = []
+    for b in batches:
+        x = frames[:b]
+        pred.predict(x)
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        _reset_counts()
+        times = []
+        for _ in range(INFER_ITERS):
+            t0 = time.perf_counter()
+            dets = pred.predict(x)
+            _sync(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+        collectives = {k: v // INFER_ITERS for k, v in spatial.calls.items()}
+        launches = affinity.launches
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        with torch.inference_mode():
+            want_out, want = one_rank(pred, x)
+            rel = heads_rel(mesh_outputs(pred, x), want_out)
+        out.append({"batch": b, "ms": times, "peak_bytes": peak, "collectives": collectives,
+                    "k1_launches": launches, "objects": int(dets.obj_valid.sum()),
+                    "objects_one_rank": int(want.obj_valid.sum()), "heads_rel": rel})
+    bad = [f"b{r['batch']}: {k} differs by {v:.3g} of max|.| > {HEADS_REL_BF16}"
+           for r in out for k, v in r["heads_rel"].items() if not v <= HEADS_REL_BF16]
+    bad += [f"b{r['batch']}: K1 launched {r['k1_launches']} times in {INFER_ITERS} calls"
+            for r in out if cuda and r["k1_launches"] != INFER_ITERS]
+    return {"rank": mesh.rank, "mesh": [mesh.data, mesh.spatial],
+            "device": torch.cuda.get_device_name(device) if cuda else str(device),
+            "batches": out, "failures": bad}
+
+
 def run(args: argparse.Namespace, device: torch.device, save_dir: str) -> dict:
-    """This rank's part: the full-width steps, or the check."""
+    """This rank's part: the full-width steps, or the check; with
+    ``--infer``, serving on the mesh at full width, or its check."""
     group = dist.group.WORLD if dist.is_initialized() else None
     world = 1 if group is None else dist.get_world_size(group)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.infer:
+        mesh = make_mesh(MeshSpec(spatial=world if args.spatial < 1 else args.spatial),
+                         device=device)
+        return infer_check(mesh) if args.check else infer_full_width(mesh)
     if not args.check:
         frames, labels = bench_train_batch(args.batch, TRAIN_M, *TRAIN_HW)
         return train(full_width_trainer(group, device), frames, labels)
@@ -318,8 +522,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             shutil.rmtree(tmp, ignore_errors=True)
         if dist.is_initialized():
             dist.destroy_process_group()
+    if args.infer and args.check:
+        result = {k: v for k, v in result.items() if k not in ("dets", "k1_inputs")}
     print(json.dumps(result), flush=True)
-    if args.check and result["failures"]:
+    if (args.check or args.infer) and result["failures"]:
         raise SystemExit("check failed: " + "; ".join(result["failures"]))
 
 

@@ -221,7 +221,7 @@ def main() -> None:
         print(f"[2] K1 from {smoke.build.CSRC / 'affinity.cu'}: {lib.name}; ptxas: "
               f"{'; '.join(smoke.build.ptxas_usage('affinity'))}", flush=True)
         if served is None:
-            _, served = smoke.phase_slice(dev, smi)
+            _, served, _ = smoke.phase_slice(dev, smi)
         smoke.phase_affinity(dev, strict=False)
         smoke.hold_affinity(5, "the serving slice's first b8 call", served, strict=False)
 

@@ -13,6 +13,7 @@ from instance_segmentation_tpu.losses.losses import coordinate_grid as j_coordin
 from instance_segmentation_tpu.models.anchors import generate_anchors as j_generate_anchors
 from instance_segmentation_tpu.ops import decode as jd
 from instance_segmentation_tpu.ops.geometry import point_in_polygon as j_point_in_polygon
+from instance_segmentation_torch.models import anchors as tanchors
 from instance_segmentation_torch.models.anchors import generate_anchors
 from instance_segmentation_torch.ops import decode as td
 from instance_segmentation_torch.ops.geometry import point_in_polygon
@@ -146,15 +147,35 @@ def _random_heads(seed, h=128, w=256, num_classes=3):
     return anchors, reg, cls
 
 
+def _bbox_float64(anchors, reg, h, w):
+    """``bbox_transform`` in float64 numpy, the arbiter when the two sides
+    differ."""
+    a, r = anchors.astype(np.float64), reg.astype(np.float64)
+    ha, wa = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    yc, xc = r[..., 0] * ha + (a[:, 0] + a[:, 2]) / 2, r[..., 1] * wa + (a[:, 1] + a[:, 3]) / 2
+    hb, wb = np.exp(r[..., 2]) * ha, np.exp(r[..., 3]) * wa
+    return np.stack([np.maximum(xc - wb / 2, 0), np.maximum(yc - hb / 2, 0),
+                     np.minimum(xc + wb / 2, w - 1), np.minimum(yc + hb / 2, h - 1)], -1)
+
+
 def test_bbox_transform_matches_reference():
     """Bit-exact wherever the two libraries' float32 ``exp`` agree (the
     reference's fused multiply-add for the box centres is reproduced);
-    elsewhere within what an ulp of ``exp`` moves."""
+    elsewhere within what an ulp of ``exp`` moves. On a mismatch the
+    message says which side left the float64 result and whether the
+    cached anchors still equal a fresh computation (ROADMAP Queue 3: this
+    test has failed twice in whole runs, never alone)."""
     anchors, reg, _ = _random_heads(4)
     want = np.asarray(jax.jit(lambda a, r: jd.bbox_transform(a, r, 128, 256))(anchors, reg))
     got = td.bbox_transform(*_t(anchors, reg), 128, 256).numpy()
+    exact = _bbox_float64(anchors, reg, 128, 256)
+    fresh = tanchors._generate.__wrapped__(128, 256, (3, 4, 5, 6, 7), 4.0,
+                                           tanchors.DEFAULT_SCALES, tanchors.DEFAULT_RATIOS)
+    why = (f"max|port - f64| {np.abs(got - exact).max():.3g}, max|jax - f64| "
+           f"{np.abs(want - exact).max():.3g}; cached anchors equal a fresh copy: "
+           f"{np.array_equal(anchors, fresh)}")
     # an ulp of exp moves an edge by an ulp of the box extent (<= 3.1e-5 here)
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4, err_msg=why)
     j_exp = np.asarray(jax.jit(jnp.exp)(reg[..., 2:]))
     same_exp = (torch.exp(torch.from_numpy(reg[..., 2:])).numpy() == j_exp).all(-1)
     assert same_exp.mean() > 0.5
