@@ -47,6 +47,7 @@ from torch._higher_order_ops.while_loop import while_loop_op
 from instance_segmentation_torch.kernels.affinity import affinity_assign
 from instance_segmentation_torch.ops.kmeans import kmeans
 from instance_segmentation_torch.ops.geometry import fma, point_in_polygon, rasterize_polygon
+from instance_segmentation_torch.utils.profiling import NO_SPAN, span
 
 
 @dataclass(frozen=True)
@@ -135,22 +136,48 @@ def _nms_sweep(keep, prev, sweeps, valid, sup):
     return valid & ~(keep[..., :, None] & sup).any(dim=-2), keep.clone(), sweeps + 1
 
 
+def _nms_read(cond: torch.Tensor) -> bool:
+    """A host read of ``leader_nms``'s loop condition, in a span "sync:nms"."""
+    with span("sync:nms"):
+        return bool(cond)
+
+
+def _nms_eager(carried, extra) -> torch.Tensor:
+    """``leader_nms``'s sweeps run eagerly, with the kernels and host reads
+    of ``while_loop_op``'s eager path (``while_loop_dense``): as there, the
+    first condition is read twice (its ``if`` and its ``while``), and the
+    final ``keep`` is returned. The loop does not run only where K is 0 (the
+    first sweep's ``keep != prev`` holds everywhere), whose clones there
+    launch nothing."""
+    cond = _nms_unsettled(*carried, *extra)
+    go = _nms_read(cond) and _nms_read(cond)
+    while go:
+        carried = _nms_sweep(*carried, *extra)
+        go = _nms_read(_nms_unsettled(*carried, *extra))
+    return carried[0]
+
+
 def leader_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float,
                max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy NMS over rank-sorted boxes [..., K, 4], as the fixpoint of
         keep_i <- valid_i & not exists j < i: keep_j & iou_ij > th
-    (unique, reached within K sweeps; in practice 2-6). The sweeps run in
-    ``torch.while_loop``'s operator, as the JAX decode's ``lax.while_loop``,
-    so ``torch.export`` captures the loop; evaluated eagerly, it reads its
-    condition on the host once a sweep. Returns the first ``max_out`` kept
-    indices (-1 where fewer were kept) and their validity."""
+    (unique, reached within K sweeps; in practice 2-6). Under ``torch.export``
+    or ``torch.compile`` the sweeps run in ``torch.while_loop``'s operator,
+    as the JAX decode's ``lax.while_loop``, so that the program captures the
+    loop; eagerly they run as that operator runs them (``_nms_eager``),
+    reading the condition on the host once a sweep. Returns the first
+    ``max_out`` kept indices (-1 where fewer were kept) and their
+    validity."""
     K = boxes.shape[-2]
     rank = torch.arange(K, device=boxes.device)
     # sup[..., j, i]: keeping j suppresses i (strictly lower rank suppresses)
     sup = (_iou_xyxy(boxes) > iou_th) & (rank[:, None] < rank[None, :])
     sweeps = torch.zeros((), dtype=torch.int64, device=boxes.device)
-    keep, _, _ = while_loop_op(_nms_unsettled, _nms_sweep,
-                               (valid.clone(), ~valid, sweeps), (valid, sup))
+    carried = (valid.clone(), ~valid, sweeps)
+    if torch.compiler.is_compiling():
+        keep, _, _ = while_loop_op(_nms_unsettled, _nms_sweep, carried, (valid, sup))
+    else:
+        keep = _nms_eager(carried, (valid, sup))
     order = torch.argsort(torch.where(keep, rank, K + rank), dim=-1)
     idx = order[..., :max_out]
     ok = keep.gather(-1, idx)
@@ -185,7 +212,10 @@ def decode_boxes(classification: torch.Tensor, regression: torch.Tensor,
     valid_k = top_s > cfg.cls_th
     # class-aware NMS via coordinate offsetting (one NMS for all classes)
     off = (c_k.float() * (w + h) * 2.0)[..., None]
-    shifted = b_k + off * torch.tensor([1.0, 0.0, 1.0, 0.0], device=off.device)
+    # a list copied to the card waits for the stream (a blocking copy)
+    with span("sync:class_offset") if off.is_cuda else NO_SPAN:
+        x_only = torch.tensor([1.0, 0.0, 1.0, 0.0], device=off.device)
+    shifted = b_k + off * x_only
     order, keep = leader_nms(shifted, valid_k, cfg.iou_th, cfg.max_dets)
     order = order.clamp(0, cfg.pre_nms - 1)
     return (b_k.gather(1, order[..., None].expand(-1, -1, 4)),
@@ -508,19 +538,30 @@ def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
     outputs = (kp [B,H,W,1], ae [B,H,W,4], tan, regression [B,A,4],
     classification [B,A,C]), float32, on one device; anchors [A, 4] on it.
     Grouping runs kernel K1 on CUDA tensors and its plain version on CPU ones.
+    The decode runs in a span "decode", each stage in its own inside it
+    ("decode.boxes", NMS included; ".peaks"; ".embed"; ".group"; ".assemble"),
+    and each host wait on the card in a span "sync:<site>": "sync:nms" (a
+    read of NMS's loop condition) and "sync:class_offset" (the NMS class
+    offset's mask copied to the card).
     """
     if cfg.group_mode not in ("affinity", "kmeans"):
         raise ValueError(f"group_mode={cfg.group_mode!r}: 'affinity' or 'kmeans'")
     kp, ae, _tan, regression, classification = outputs
     H, W = kp.shape[1:3]
 
-    boxes, scores, classes, det_valid = decode_boxes(
-        classification, regression, anchors, H, W, cfg)
-    flat_idx, kp_ok = select_peaks_batch(kp[..., 0], cfg.kp_th, exact=cfg.exact_topk)
-    kp_rc, emb, sig, c_emb = keypoint_embeddings(flat_idx, ae, boxes, H, W)
-    assign = group_keypoints(kp_rc, kp_ok, emb, sig, c_emb, boxes, det_valid, cfg)
-    polys, lens, centers, obj_ok = assemble_objects(
-        kp_rc, kp_ok, assign, boxes, det_valid, H, W, orig_h, orig_w, scale_int, cfg)
+    with span("decode"):
+        with span("decode.boxes"):
+            boxes, scores, classes, det_valid = decode_boxes(
+                classification, regression, anchors, H, W, cfg)
+        with span("decode.peaks"):
+            flat_idx, kp_ok = select_peaks_batch(kp[..., 0], cfg.kp_th, exact=cfg.exact_topk)
+        with span("decode.embed"):
+            kp_rc, emb, sig, c_emb = keypoint_embeddings(flat_idx, ae, boxes, H, W)
+        with span("decode.group"):
+            assign = group_keypoints(kp_rc, kp_ok, emb, sig, c_emb, boxes, det_valid, cfg)
+        with span("decode.assemble"):
+            polys, lens, centers, obj_ok = assemble_objects(
+                kp_rc, kp_ok, assign, boxes, det_valid, H, W, orig_h, orig_w, scale_int, cfg)
     return Detections(boxes=boxes, scores=scores, classes=classes,
                       det_valid=det_valid, polygons=polys, poly_len=lens,
                       centers=centers, obj_valid=obj_ok)
@@ -530,4 +571,6 @@ def forward_and_decode(model, images: torch.Tensor, anchors: torch.Tensor,
                        orig_h: int, orig_w: int, scale_int: float,
                        cfg: DecodeConfig = DecodeConfig()) -> Detections:
     """Model forward (eval, standard head layout) followed by the full decode."""
-    return decode_output(model(images), anchors, orig_h, orig_w, scale_int, cfg)
+    with span("forward"):
+        outputs = model(images)
+    return decode_output(outputs, anchors, orig_h, orig_w, scale_int, cfg)

@@ -12,6 +12,13 @@ halo exchanges and gathers of ``parallel/spatial.py``, and returns that
 slice's detections. Every rank of a spatial group decodes the same
 gathered maps and so returns the same detections. This is the counterpart
 of the JAX package's inference under a ``data x spatial`` mesh.
+
+Under ``torch.profiler`` a request shows as spans (``utils/profiling.span``):
+"upload" (the frames' slice and copy to the device), "forward" and
+"decode" with its stages (``ops/decode.py``), and "sync:<site>" around
+each point where the host waits on the device: "sync:upload" around the
+frames' copy from pageable host memory, and the decode's "sync:class_offset"
+and "sync:nms".
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig,
 from instance_segmentation_torch.ops.decode import DecodeConfig, Detections, forward_and_decode
 from instance_segmentation_torch.parallel import spatial
 from instance_segmentation_torch.parallel.mesh import Mesh, batch_shard
+from instance_segmentation_torch.utils.profiling import NO_SPAN, span, tracing
 from instance_segmentation_torch.weights import init_random, load_flax_variables
 
 
@@ -55,6 +63,12 @@ class Predictor:
                                    ratios=cfg.ratios)
         self.anchors = torch.tensor(anchors, device=self.device)
 
+    def _pageable(self, images: torch.Tensor) -> bool:
+        """Whether, while a profiler records, ``images``' copy to the device
+        leaves pageable host memory, which makes the host wait."""
+        return (tracing() and self.device.type == "cuda" and images.device.type == "cpu"
+                and not images.is_pinned())
+
     @torch.inference_mode()
     def predict(self, frames: Union[np.ndarray, torch.Tensor]) -> Detections:
         """[B, H, W, 3] uint8 frames -> Detections on the predictor's device
@@ -63,9 +77,11 @@ class Predictor:
         if images.dtype != torch.uint8 or tuple(images.shape[1:]) != (*self.input_hw, 3):
             raise ValueError(f"want uint8 [B, {self.input_hw[0]}, {self.input_hw[1]}, 3] "
                              f"frames, got {images.dtype} {tuple(images.shape)}")
-        if self.mesh is not None:
-            images = batch_shard(images, self.mesh)
-        images = images.to(self.device, non_blocking=True)
+        with span("upload"):
+            if self.mesh is not None:
+                images = batch_shard(images, self.mesh)
+            with span("sync:upload") if self._pageable(images) else NO_SPAN:
+                images = images.to(self.device, non_blocking=True)
         with spatial.sharded(self.mesh):
             return forward_and_decode(self.model, images, self.anchors, self.orig_hw[0],
                                       self.orig_hw[1], self.scale, self.decode_cfg)

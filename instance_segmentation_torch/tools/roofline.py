@@ -52,7 +52,6 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.autograd.profiler import record_function
 
 from instance_segmentation_torch.kernels import ae_terms, bounds, minr2, rasterize
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
@@ -110,7 +109,7 @@ def build(args: argparse.Namespace, dev: torch.device) -> Tuple[torch.nn.Module,
             0, 255, (b, h, w, 3), dtype=np.uint8)).to(dev)
 
         def call():
-            with torch.inference_mode(), record_function("decode"):
+            with torch.inference_mode():
                 return forward_and_decode(model, images, anchors, 2 * h, 2 * w, 2.0,
                                           DecodeConfig())
         return model, call

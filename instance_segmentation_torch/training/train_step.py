@@ -7,9 +7,9 @@ optionally augments them (``device_aug``), generates the targets, runs the
 model in training mode (batch statistics; the running statistics are
 updated in place), computes the five losses of ``compose_loss``,
 back-propagates into the float32 master weights and applies the optimizer.
-Each stage runs in a ``torch.profiler.record_function`` range (targets,
-forward, loss, backward, optimizer) that a profiler trace shows and that
-costs nothing without one.
+Each stage runs in a ``utils/profiling.span`` (targets, forward, loss,
+backward, optimizer): a ``torch.profiler`` range while a profiler records,
+and a shared no-op context, which costs a flag's read, while none does.
 
 Data parallelism (the reference's data mesh): given an initialised process
 group, each rank's trainer takes its slice of the global batch, its batch
@@ -27,7 +27,6 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
-from torch.profiler import record_function
 
 from instance_segmentation_torch.device import require_cuda
 from instance_segmentation_torch.losses import LossConfig, compose_loss
@@ -38,6 +37,7 @@ from instance_segmentation_torch.ops.device_aug import (
 )
 from instance_segmentation_torch.ops.targets import generate_targets
 from instance_segmentation_torch.parallel.multihost import process_batch_slice
+from instance_segmentation_torch.utils.profiling import span
 from instance_segmentation_torch.weights import init_random, load_flax_variables
 
 
@@ -144,23 +144,23 @@ class Trainer:
         (detached scalars on the device; those of the global batch)."""
         images, polys, n_verts, cls_ids = self._as_batch(images, polys, n_verts, cls_ids)
         h, w = self.input_hw
-        with record_function("targets"):
+        with span("targets"):
             targets = generate_targets(polys, n_verts, cls_ids, h, w,
                                        max_points=self.max_points, dense_kp=False)
         self.optimizer.zero_grad(set_to_none=True)
-        with record_function("forward"):
+        with span("forward"):
             outputs = self.forward(images)
-        with record_function("loss"):
+        with span("loss"):
             total, stats = compose_loss(outputs, targets, self.anchors, self.loss_cfg,
                                         group=self.group)
-        with record_function("backward"):
+        with span("backward"):
             total.backward()
         return {k: v.detach() for k, v in stats.items()}
 
     def step(self, images, polys, n_verts, cls_ids) -> Dict[str, torch.Tensor]:
         """One training step (``compute_grads`` then the optimizer update)."""
         stats = self.compute_grads(images, polys, n_verts, cls_ids)
-        with record_function("optimizer"):
+        with span("optimizer"):
             self.optimizer.step()
         self.steps += 1
         return stats

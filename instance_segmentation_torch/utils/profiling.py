@@ -1,18 +1,18 @@
 """Profiling hooks.
 
-Counterpart of ``instance_segmentation_tpu/utils/profiling.py``: a trace
-context for device timelines and a host step timer. ``device_trace``
-records a ``torch.profiler`` trace of CPU activity, and of CUDA activity
-where CUDA is available, into ``logdir`` as a Chrome trace
-(``trace.json``, viewable in Perfetto or ``chrome://tracing``), or does
-nothing when ``logdir`` is empty. ``StepTimer.summary()`` has the JAX
-timer's keys and percentiles.
+``span(name)`` is the port's one way to open a ``torch.profiler`` range:
+the train step's stages, the serving path's stages and host waits
+(``serve.py``, ``ops/decode.py``) and the roofline's block ranges go
+through it. A range is recorded on the profiler's clock beside the device
+activity it launches, and while no profiler records ``span`` hands out one
+shared no-op context, so that an unrecorded range costs the read of a flag.
 
 The rest serves the port's profilers (``tools/profile_*.py``,
-``tools/bench_train_data.py``): the device a ``--device`` flag names (the
-card, or the CPU only when asked), synchronised host times and their
-spread, and a traced window summarized by device kernel (what the JAX
-package's ``tools/parse_trace.py`` does with a JAX trace).
+``tools/bench_train_data.py``, ``tools/roofline.py``): the device a
+``--device`` flag names (the card, or the CPU only when asked),
+synchronised host times and their spread, and a traced window summarized
+by device kernel (what the JAX package's ``tools/parse_trace.py`` does with
+a JAX trace).
 """
 
 from __future__ import annotations
@@ -30,44 +30,23 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-
-@contextlib.contextmanager
-def device_trace(logdir: Optional[str]) -> Iterator[None]:
-    """Record a profile of the enclosed code into ``logdir`` when set."""
-    if not logdir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+# what ``span`` returns while no profiler records: one context, shared
+NO_SPAN = contextlib.nullcontext()
 
 
-class StepTimer:
-    """Accumulates host-side step latencies with a percentile summary."""
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` records (PyTorch's own module flag)."""
+    return torch.autograd.profiler._is_profiler_enabled
 
-    def __init__(self):
-        self._times = []
-        self._t0 = None
 
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self):
-        if self._t0 is not None:
-            self._times.append(time.perf_counter() - self._t0)
-            self._t0 = None
-
-    def summary(self) -> dict:
-        if not self._times:
-            return {}
-        a = np.asarray(self._times)
-        return {"mean_s": float(a.mean()), "p50_s": float(np.percentile(a, 50)),
-                "p95_s": float(np.percentile(a, 95)), "n": len(a)}
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records,
+    else a shared no-op context. A ``record_function`` entered and left with
+    no profiler still costs ~14 us of host time; the flag's read, well under
+    one."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.autograd.profiler.record_function(name)
+    return NO_SPAN
 
 
 # ---------------------------------------------------------------------------
@@ -214,9 +193,9 @@ def trace_lines(summary: dict, label: str) -> list:
 # counted bytes and FLOPs of the operations that launched them
 # ---------------------------------------------------------------------------
 
-# the model's blocks (attribute of ``EfficientSeg``) and the step's stage
-# ranges (``training/train_step.py``; "decode" is the roofline tool's) that
-# a kernel's block is read from; "input" is the model outside its blocks
+# the model's blocks (attribute of ``EfficientSeg``) and the stage spans
+# (``training/train_step.py``'s; "decode" is ``ops/decode.decode_output``'s)
+# that a kernel's block is read from; "input" is the model outside its blocks
 MODEL_BLOCKS = {"backbone": "backbone_net.model", "bifpn": "bifpn", "regressor": "regressor",
                 "classifier": "classifier", "unet": "kp_header"}
 STAGES = ("targets", "loss", "optimizer", "decode")
@@ -228,18 +207,17 @@ _DISPATCHED = "PythonDispatchMode"     # PyTorch's range around a dispatch mode'
 
 @contextlib.contextmanager
 def block_ranges(model: torch.nn.Module) -> Iterator[None]:
-    """A ``record_function`` range "block:<name>" around every call of each
-    of ``model``'s blocks and "block:input" around the model's own (forward
-    hooks, removed on exit). A block's recompute under remat, which stops
-    early by an exception, closes its range too."""
-    from torch.autograd.profiler import record_function
+    """A ``span`` "block:<name>" around every call of each of ``model``'s
+    blocks and "block:input" around the model's own (forward hooks, removed
+    on exit). A block's recompute under remat, which stops early by an
+    exception, closes its range too."""
     handles = []
 
     def add(module: torch.nn.Module, name: str) -> None:
         open_ranges = []
 
         def enter(mod, args):
-            rf = record_function(_BLOCK + name)
+            rf = span(_BLOCK + name)
             rf.__enter__()
             open_ranges.append(rf)
 

@@ -1,13 +1,10 @@
-"""The debug drawings of ``draw_flag`` and the profiling hooks against the
-JAX package and OpenCV 5.0 on the CPU: ``visualize_keypoints`` equals
-``cv2.circle(img, (x, y), 1, color, -1)`` and ``draw_rectangle``
-``cv2.rectangle`` bit for bit, borders and points outside the image
-included; ``dump_detections`` writes the three PNGs that JAX's writes
-(read back, pixel for pixel) on the same detections, from a JPEG and from a
-PNG frame; ``StepTimer.summary()`` equals JAX's for the same step times
-(exactly), and ``device_trace`` writes a trace on the CPU."""
+"""The debug drawings of ``draw_flag`` against the JAX package and OpenCV
+5.0 on the CPU: ``visualize_keypoints`` equals ``cv2.circle(img, (x, y), 1,
+color, -1)`` and ``draw_rectangle`` ``cv2.rectangle`` bit for bit, borders
+and points outside the image included; ``dump_detections`` writes the three
+PNGs that JAX's writes (read back, pixel for pixel) on the same detections,
+from a JPEG and from a PNG frame."""
 
-import json
 import os
 
 import cv2
@@ -17,10 +14,8 @@ import torch
 
 from instance_segmentation_tpu.ops import decode as jd
 from instance_segmentation_tpu.utils import debug_draw as jdraw
-from instance_segmentation_tpu.utils import profiling as jprof
 from instance_segmentation_torch.ops import decode as td
 from instance_segmentation_torch.utils import debug_draw as tdraw
-from instance_segmentation_torch.utils import profiling as tprof
 from instance_segmentation_torch.utils.jpeg import write_jpeg
 from instance_segmentation_torch.utils.png import read_png, write_png
 from instance_segmentation_torch.utils.visualize import draw_rectangle, visualize_keypoints
@@ -80,27 +75,3 @@ def test_dump_detections_equals_jax(ext, tmp_path):
         assert not np.array_equal(got, cv2.imread(path)[..., ::-1])      # something drawn
     tdraw.dump_detections(dets, 0, str(tmp_path / "missing.jpg"), str(tmp_path / "none"))
     assert os.listdir(tmp_path / "none") == []       # an unreadable frame is skipped
-
-
-def test_step_timer_summary_equals_jax():
-    times = list(np.random.default_rng(3).uniform(0.01, 0.2, 17))
-    t, j = tprof.StepTimer(), jprof.StepTimer()
-    assert t.summary() == j.summary() == {}
-    t._times, j._times = list(times), list(times)
-    assert t.summary() == j.summary()
-    assert set(t.summary()) == {"mean_s", "p50_s", "p95_s", "n"}
-    t.start()
-    t.stop()
-    t.stop()                      # a stop without a start adds nothing
-    assert t.summary()["n"] == 18
-
-
-def test_device_trace_writes_a_trace(tmp_path):
-    with tprof.device_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    trace = json.load(open(tmp_path / "trace" / "trace.json"))
-    assert trace["traceEvents"]
-    with tprof.device_trace(""):
-        pass
-    with tprof.device_trace(None):
-        pass
