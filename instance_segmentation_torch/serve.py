@@ -13,12 +13,18 @@ slice's detections. Every rank of a spatial group decodes the same
 gathered maps and so returns the same detections. This is the counterpart
 of the JAX package's inference under a ``data x spatial`` mesh.
 
+On one card the eval forward is replayed as a CUDA graph (``ServingModel``):
+the second request of a frame shape captures it, and every later one copies
+its frames into the graph's input and launches the whole forward at once,
+where eagerly the host launched its ~3,000 kernels one by one.
+
 Under ``torch.profiler`` a request shows as spans (``utils/profiling.span``):
 "upload" (the frames' slice and copy to the device), "forward" and
 "decode" with its stages (``ops/decode.py``), and "sync:<site>" around
 each point where the host waits on the device: "sync:upload" around the
 frames' copy from pageable host memory, and the decode's "sync:class_offset"
-and "sync:nms".
+and "sync:nms". Inside "forward", "graph:capture" opens around a capture and
+"graph:replay" around each replay.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.ops.decode import DecodeConfig, Detections, forward_and_decode
@@ -34,6 +41,63 @@ from instance_segmentation_torch.parallel import spatial
 from instance_segmentation_torch.parallel.mesh import Mesh, batch_shard
 from instance_segmentation_torch.utils.profiling import NO_SPAN, span, tracing
 from instance_segmentation_torch.weights import init_random, load_flax_variables
+
+
+class _Graph:
+    """One captured eval forward: its static input, the CUDA graph, and the
+    outputs that each replay overwrites."""
+
+    def __init__(self, forward, images: torch.Tensor):
+        self.input = images.clone(memory_format=torch.contiguous_format)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):         # a side stream, a private memory pool
+            self.outputs = forward(self.input)
+
+    def replay(self, images: torch.Tensor) -> tuple:
+        self.input.copy_(images)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+
+class ServingModel(EfficientSeg):
+    """The Predictor's EfficientSeg, whose eval forward of a CUDA frame batch
+    replays one CUDA graph per input shape. The first call of a shape runs
+    eagerly (cuDNN and cuBLAS set themselves up), the second captures the
+    forward, from the frames through the five heads, and replays it, and
+    every later call copies its frames into the graph's input and replays.
+    The graphs read the weights where they lie, so these stay fixed once the
+    Predictor is built. Each call returns clones of the graph's outputs, which
+    the caller may keep past the next call.
+
+    A call runs eagerly where a replay would compute something else or go
+    unseen: off CUDA; under a spatial mesh (its halo exchanges are
+    collectives); in training or with grad enabled; and under a Python
+    dispatch mode (a FLOP counter or fake tensors see only the operations
+    that run, and a replay runs none)."""
+
+    def __init__(self, cfg: EfficientSegConfig):
+        super().__init__(cfg)
+        self._graphs = {}       # (shape, dtype, device) -> None once seen, then its _Graph
+
+    def eager(self, images: torch.Tensor) -> bool:
+        """Whether the forward of ``images`` runs eagerly (see the class)."""
+        return (not images.is_cuda or spatial.active() is not None or self.training
+                or torch.is_grad_enabled() or _get_current_dispatch_mode() is not None)
+
+    def forward(self, images: torch.Tensor):
+        if self.eager(images):
+            return super().forward(images)
+        key = (tuple(images.shape), images.dtype, images.device)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return super().forward(images)
+        with torch.cuda.device(images.device):
+            graph = self._graphs[key]
+            if graph is None:
+                with span("graph:capture"):
+                    graph = self._graphs[key] = _Graph(super().forward, images)
+            with span("graph:replay"):
+                return graph.replay(images)
 
 
 class Predictor:
@@ -52,7 +116,7 @@ class Predictor:
         self.mesh = mesh
         self.orig_hw, self.scale = tuple(orig_hw), float(scale)
         self.input_hw = tuple(int(round(s / self.scale)) for s in self.orig_hw)
-        model = EfficientSeg(cfg)
+        model = ServingModel(cfg)
         if isinstance(weights, torch.Generator):
             init_random(model, weights)
         else:

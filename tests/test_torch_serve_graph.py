@@ -1,0 +1,304 @@
+"""The serving forward replayed as a CUDA graph (``serve.ServingModel``).
+
+On the CPU: the rule that runs the forward eagerly (off CUDA, under a spatial
+mesh, in training or with grad, under a dispatch mode), held on a fake CUDA
+frame batch; Predictors on the CPU, under a dispatch mode (the port's FLOP
+counter) and under a data 1 x spatial 2 mesh (two ranks over gloo) open no
+``graph:*`` span and decode as a plain ``EfficientSeg`` does; the model keeps
+the block paths that the benchmark hooks.
+
+On the card (marked ``cuda``; ``python -m pytest --noconftest -m cuda
+tests/test_torch_serve_graph.py``): calls 1 (eager), 2 (capture) and 3
+(replay) give the same heads and detections bit for bit (B0 float32 and int8
+at 128x256, D3 bf16 at 512x1024); heads kept from one request survive the
+next; a second batch size has its own graph; the benchmark's FLOP counter
+counts the same after the capture as before it; a forward hook fires once a
+request; a traced replay opens one ``graph:replay`` span inside ``forward``
+and shows the graph's kernels there.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.profiler import ProfilerActivity, profile
+
+from benchmark.spans import BLOCKS
+from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig
+from instance_segmentation_torch.ops.decode import DecodeConfig, forward_and_decode
+from instance_segmentation_torch.parallel import multihost, spatial
+from instance_segmentation_torch.parallel.mesh import Mesh, MeshSpec, batch_shard, make_mesh
+from instance_segmentation_torch.serve import Predictor, ServingModel
+from instance_segmentation_torch.utils.flops import OpCounter, total_flops
+
+H, W = 128, 256
+CPU = torch.device("cpu")
+B0 = EfficientSegConfig(num_classes=8, compound_coef=0)
+DECODE = DecodeConfig(kp_th=2000)
+
+
+def _predictor(cfg=B0, device=CPU, hw=(H, W), mesh=None, seed=0):
+    return Predictor(cfg, DECODE, torch.Generator().manual_seed(seed), device,
+                     orig_hw=(2 * hw[0], 2 * hw[1]), scale=2.0, mesh=mesh)
+
+
+def _frames(batch=1, hw=(H, W), seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (batch, *hw, 3), dtype=np.uint8)
+
+
+def _plain(pred):
+    """A plain ``EfficientSeg`` holding the predictor's weights: the forward
+    the Predictor ran before it replayed graphs."""
+    plain = EfficientSeg(pred.cfg)
+    plain.load_state_dict(pred.model.state_dict())
+    return plain.to(pred.device).eval()
+
+
+def _identical(a, b) -> bool:
+    """Equal bit for bit (NaNs included), in shape, dtype and values."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _all_identical(xs, ys) -> bool:
+    return len(xs) == len(ys) and all(_identical(x, y) for x, y in zip(xs, ys))
+
+
+def _span_names(prof) -> list:
+    return [e.name for e in prof.events()]
+
+
+# ---------------------------------------------------------------------------
+# CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def serving_b0():
+    return ServingModel(B0)
+
+
+@pytest.fixture(scope="module")
+def fake_cuda_frames():
+    """A [1, H, W, 3] uint8 frame batch that says it lies on the card."""
+    with FakeTensorMode():
+        return torch.empty(1, H, W, 3, dtype=torch.uint8, device="cuda")
+
+
+@pytest.mark.parametrize("case, eager", [
+    ("cuda", False), ("cpu", True), ("spatial_mesh", True), ("one_rank_mesh", False),
+    ("dispatch_mode", True), ("grad", True), ("training", True)])
+def test_eager_rule(serving_b0, fake_cuda_frames, case, eager):
+    images = torch.zeros(1, H, W, 3, dtype=torch.uint8) if case == "cpu" else fake_cuda_frames
+    spatial_ranks = {"spatial_mesh": 2, "one_rank_mesh": 1}.get(case)
+    mesh = None if spatial_ranks is None else Mesh(1, spatial_ranks, 0, 0, None, None, CPU)
+    serving_b0.train(case == "training")
+    try:
+        with torch.inference_mode(case != "grad"), spatial.sharded(mesh):
+            if case == "dispatch_mode":
+                with OpCounter():
+                    assert serving_b0.eager(images) is eager
+            else:
+                assert serving_b0.eager(images) is eager
+    finally:
+        serving_b0.eval()
+    assert not serving_b0._graphs
+
+
+def _three_requests(pred, frames):
+    """Three requests of ``frames`` under a CPU profiler: (their detections,
+    the names of the ranges they opened)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dets = [pred.predict(frames) for _ in range(3)]
+    return dets, _span_names(prof)
+
+
+def test_cpu_predictor_opens_no_graph_span_and_decodes_as_before():
+    pred = _predictor()
+    frames = _frames()
+    dets, names = _three_requests(pred, frames)
+    with torch.inference_mode():
+        want = forward_and_decode(_plain(pred), torch.as_tensor(frames), pred.anchors,
+                                  *pred.orig_hw, pred.scale, DECODE)
+    assert "forward" in names and not [n for n in names if n.startswith("graph:")]
+    assert all(_all_identical(d, want) for d in dets)
+    assert int(want.det_valid.sum()) > 0
+    assert not pred.model._graphs
+
+
+def test_predictor_under_a_dispatch_mode_runs_eagerly_and_decodes_as_before():
+    pred = _predictor()
+    frames = _frames(seed=1)
+    counted = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dets = []
+        for _ in range(3):
+            with OpCounter() as counter:
+                dets.append(pred.predict(frames))
+            counted.append(total_flops(counter.ops))
+    names = _span_names(prof)
+    with torch.inference_mode():
+        want = forward_and_decode(_plain(pred), torch.as_tensor(frames), pred.anchors,
+                                  *pred.orig_hw, pred.scale, DECODE)
+    assert "forward" in names and not [n for n in names if n.startswith("graph:")]
+    assert all(_all_identical(d, want) for d in dets)
+    assert counted[0] > 0 and counted == counted[:1] * 3
+    assert not pred.model._graphs
+
+
+def _mesh_rank(rank, world, init_method, out_dir):
+    torch.set_num_threads(1)
+    multihost.maybe_initialize("cpu", init_method=init_method, rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(MeshSpec(data=1, spatial=2), device_type="cpu")
+        pred = _predictor(mesh=mesh)
+        frames = _frames(seed=2)
+        dets, names = _three_requests(pred, frames)
+        with torch.inference_mode(), spatial.sharded(mesh):
+            want = forward_and_decode(_plain(pred), batch_shard(torch.as_tensor(frames), mesh),
+                                      pred.anchors, *pred.orig_hw, pred.scale, DECODE)
+        torch.save({"dets": dets, "want": want, "names": names, "graphs": len(pred.model._graphs)},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_predictor_under_a_spatial_mesh_runs_eagerly_and_decodes_as_before(tmp_path):
+    multihost.spawn(_mesh_rank, 2, (f"file://{tmp_path}/rendezvous", str(tmp_path)), timeout=600)
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+        names = got["names"]
+        assert "forward" in names and not [n for n in names if n.startswith("graph:")]
+        assert all(_all_identical(d, got["want"]) for d in got["dets"])
+        assert got["graphs"] == 0
+
+
+def test_predictor_model_is_an_efficientseg_with_the_benchmarks_block_paths():
+    model = _predictor().model
+    assert isinstance(model, EfficientSeg)
+    for path in BLOCKS.values():
+        assert isinstance(model.get_submodule(path), torch.nn.Module)
+
+
+# ---------------------------------------------------------------------------
+# The card
+# ---------------------------------------------------------------------------
+
+CARD_CASES = {
+    "b0-f32": (B0, (H, W)),
+    "b0-int8": (EfficientSegConfig(num_classes=8, compound_coef=0, compute_dtype=torch.bfloat16,
+                                   quant="int8"), (H, W)),
+    "d3-bf16": (EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16),
+                (512, 1024)),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph is captured and replayed only there")
+    return torch.device("cuda")
+
+
+class _Heads:
+    """A forward hook on the model keeping each call's outputs."""
+
+    def __init__(self, model):
+        self.calls = []
+        self.handle = model.register_forward_hook(lambda _m, _a, out: self.calls.append(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_eager_capture_and_replay_agree_bit_for_bit(cuda_device, case):
+    cfg, hw = CARD_CASES[case]
+    pred = _predictor(cfg, cuda_device, hw)
+    heads = _Heads(pred.model)
+    frames = _frames(hw=hw, seed=3)
+    key = ((1, *hw, 3), torch.uint8, torch.device(cuda_device.type, torch.cuda.current_device()))
+    dets = []
+    for call in range(3):
+        dets.append(pred.predict(frames))
+        assert (pred.model._graphs[key] is None) == (call == 0)
+    torch.cuda.synchronize()
+    assert len(heads.calls) == 3
+    for call in (1, 2):
+        assert _all_identical(heads.calls[call], heads.calls[0]), f"{case}: call {call + 1}'s heads"
+        assert _all_identical(dets[call], dets[0]), f"{case}: call {call + 1}'s detections"
+
+
+@pytest.mark.cuda
+def test_heads_kept_from_a_request_survive_the_next(cuda_device):
+    pred = _predictor(device=cuda_device)
+    heads = _Heads(pred.model)
+    a, b = _frames(seed=4), _frames(seed=5)
+    for _ in range(3):
+        pred.predict(a)
+    pred.predict(a)
+    kept = heads.calls[-1]
+    copy = [t.clone() for t in kept]
+    pred.predict(b)
+    torch.cuda.synchronize()
+    assert _all_identical(kept, copy)
+    assert not any(torch.equal(x, y) for x, y in zip(kept, heads.calls[-1]))
+
+
+@pytest.mark.cuda
+def test_each_batch_size_has_its_own_graph(cuda_device):
+    pred = _predictor(device=cuda_device)
+    heads = _Heads(pred.model)
+    one, two = _frames(1, seed=6), _frames(2, seed=7)
+    first = [pred.predict(one) for _ in range(3)]
+    pairs = [pred.predict(two) for _ in range(3)]
+    again = pred.predict(one)
+    torch.cuda.synchronize()
+    assert len(pred.model._graphs) == 2 and all(g is not None for g in pred.model._graphs.values())
+    assert _all_identical(again, first[0]) and _all_identical(pairs[2], pairs[0])
+    assert _all_identical(heads.calls[-1], heads.calls[0])
+
+
+@pytest.mark.cuda
+def test_flop_count_after_capture_equals_the_eager_one(cuda_device):
+    from benchmark.counts import flops
+    pred = _predictor(CARD_CASES["d3-bf16"][0], cuda_device, CARD_CASES["d3-bf16"][1])
+    frames = _frames(hw=CARD_CASES["d3-bf16"][1], seed=8)
+    _, eager_ops = flops.count(lambda: pred.predict(frames))
+    pred.predict(frames)
+    pred.predict(frames)
+    assert all(g is not None for g in pred.model._graphs.values()) and pred.model._graphs
+    _, after_ops = flops.count(lambda: pred.predict(frames))
+    assert flops.total_flops(eager_ops) > 0
+    assert flops.total_flops(after_ops) == flops.total_flops(eager_ops)
+    assert [op.name for op in after_ops] == [op.name for op in eager_ops]
+
+
+@pytest.mark.cuda
+def test_a_forward_hook_fires_once_a_request(cuda_device):
+    pred = _predictor(device=cuda_device)
+    heads = _Heads(pred.model)
+    for r in range(5):
+        pred.predict(_frames(seed=9 + r % 2))
+        assert len(heads.calls) == r + 1
+
+
+@pytest.mark.cuda
+def test_a_traced_replay_shows_its_span_and_kernels(cuda_device):
+    from benchmark import trace
+    pred = _predictor(device=cuda_device)
+    frames = _frames(seed=11)
+
+    def request():
+        pred.predict(frames)
+        return 1
+    eager = trace.traced_segment(request, cuda_device)
+    request()                                   # the capture
+    replay = trace.traced_segment(request, cuda_device)
+    assert eager["span_count"].get("graph:replay", 0) == 0
+    assert replay["span_count"]["graph:replay"] == 1 and "graph:capture" not in replay["span_count"]
+    # the graph's kernels are launched inside "forward": the same kernels, plus
+    # the copy of the frames into the graph and the five heads' clones
+    assert 0 <= replay["span_kernels"]["forward"] - eager["span_kernels"]["forward"] <= 10
+    assert replay["span_host_s"]["forward"] < eager["span_host_s"]["forward"]
