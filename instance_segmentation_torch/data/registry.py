@@ -24,7 +24,9 @@ dataset's transforms with ``np.random.default_rng([seed, worker, epoch])``
 at its first task of an epoch, as the JAX workers do when forked. Delivery
 is in order, with ``num_workers + prefetch`` batches in flight. A worker's
 exception is raised in the parent as a ``RuntimeError``, and so is a
-worker that dies; nothing falls back to serial loading. The workers hide
+worker that dies, also in the middle of sending a batch: each worker sends
+on a pipe of its own, whose only write end it holds, so its death ends the
+pipe where the parent reads. Nothing falls back to serial loading. The workers hide
 every CUDA device from themselves before they read anything. At exit
 (``stop_fork_server``) the pools still open are stopped and then the fork
 server, which would otherwise outlive this process while it exits.
@@ -35,6 +37,7 @@ from __future__ import annotations
 import atexit
 import collections
 import multiprocessing as mp
+import multiprocessing.connection
 import multiprocessing.forkserver
 import os
 import queue
@@ -148,8 +151,9 @@ class BatchMaker:
 
 
 def _worker_main(maker: BatchMaker, seed: int, worker: int, tasks, results) -> None:
-    """A pool worker: takes (epoch, batch id, indices) until None, and posts
-    (batch id, batch) or (batch id, None, the error's traceback)."""
+    """A pool worker: takes (epoch, batch id, indices) until None, and sends
+    (batch id, batch) or (batch id, None, the error's traceback) on its
+    pipe ``results``."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     epoch = None
     while True:
@@ -161,39 +165,49 @@ def _worker_main(maker: BatchMaker, seed: int, worker: int, tasks, results) -> N
             if task_epoch != epoch:
                 maker.reseed(seed, worker, task_epoch)
                 epoch = task_epoch
-            results.put((bid, maker(indices)))
+            results.send((bid, maker(indices)))
         except BaseException:
-            results.put((bid, None, traceback.format_exc()))
+            results.send((bid, None, traceback.format_exc()))
             return
 
 
 class _Pool:
-    """Spawned worker processes with their task and result queues."""
+    """Spawned worker processes with a shared task queue and a result pipe
+    each (``results[w]``: the read end; worker ``w`` holds the write end)."""
 
     def __init__(self, maker: BatchMaker, seed: int, num_workers: int):
         from instance_segmentation_torch.kernels import build
         build.build_all(HOST_HELPERS)
         ctx = worker_context()
-        self.tasks, self.results = ctx.Queue(), ctx.Queue()
-        self.procs = [ctx.Process(target=_worker_main,
-                                  args=(maker, seed, w, self.tasks, self.results),
-                                  daemon=True, name=f"iseg-data-{w}")
-                      for w in range(num_workers)]
-        for p in self.procs:
-            p.start()
+        self.tasks = ctx.Queue()
+        self.procs, self.results = [], []
+        for w in range(num_workers):
+            reader, writer = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_worker_main, args=(maker, seed, w, self.tasks, writer),
+                               daemon=True, name=f"iseg-data-{w}")
+            proc.start()
+            writer.close()
+            self.procs.append(proc)
+            self.results.append(reader)
         _POOLS.add(self)
 
+    def _died(self, proc) -> RuntimeError:
+        proc.join(timeout=_POLL_S)
+        return RuntimeError(f"data worker {proc.name} died (exit code {proc.exitcode}) "
+                            "without delivering its batch")
+
     def get(self):
-        """The next result; raises when a worker has died without one."""
+        """The next result; raises when a worker has died without one, or
+        while sending one (its pipe ends in the middle of the message)."""
         while True:
-            try:
-                return self.results.get(timeout=_POLL_S)
-            except queue.Empty:
-                dead = [p for p in self.procs if not p.is_alive()]
-                if dead:
-                    raise RuntimeError(
-                        f"data worker {dead[0].name} died (exit code {dead[0].exitcode}) "
-                        "without delivering its batch") from None
+            for conn in mp.connection.wait(self.results, timeout=_POLL_S):
+                try:
+                    return conn.recv()
+                except (EOFError, OSError):
+                    raise self._died(self.procs[self.results.index(conn)]) from None
+            dead = [p for p in self.procs if not p.is_alive()]
+            if dead:
+                raise self._died(dead[0])
 
     def stop(self) -> None:
         """Ask every worker to end; results still in flight are read and
@@ -205,18 +219,21 @@ class _Pool:
         for _ in self.procs:
             self.tasks.put(None)
         deadline = time.monotonic() + 10.0
-        while any(p.is_alive() for p in self.procs) and time.monotonic() < deadline:
-            try:
-                self.results.get(timeout=0.05)
-            except queue.Empty:
-                pass
+        open_ = list(self.results)
+        while open_ and time.monotonic() < deadline:
+            for conn in mp.connection.wait(open_, timeout=0.05):
+                try:
+                    conn.recv()
+                except (EOFError, OSError):     # the worker is gone
+                    open_.remove(conn)
         for p in self.procs:
             if p.is_alive():
                 p.kill()
             p.join()
-        for q in (self.tasks, self.results):
-            q.cancel_join_thread()
-            q.close()
+        for conn in self.results:
+            conn.close()
+        self.tasks.cancel_join_thread()
+        self.tasks.close()
 
 
 class BatchLoader:

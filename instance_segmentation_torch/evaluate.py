@@ -49,7 +49,8 @@ def pick_device(name: str) -> torch.device:
 
 
 def seeded_model(cfg: Config, num_classes: int, device: torch.device) -> EfficientSeg:
-    """EfficientSeg of ``cfg.compound_coef`` in bf16 with the seeded
+    """EfficientSeg of ``cfg.compound_coef`` (its backbone ``cfg.backbone``
+    where given, e.g. ``efficientnetv2-l``) in bf16 with the seeded
     initialisation of ``cfg.seed``, in eval mode on ``device``; with
     ``tpu.quant: int8`` its dense convs take the int8 path (the JAX
     ``evaluate.py:70``)."""
@@ -57,7 +58,8 @@ def seeded_model(cfg: Config, num_classes: int, device: torch.device) -> Efficie
     quant = (tpu_cfg.get("quant") or "none") if tpu_cfg else "none"
     model = EfficientSeg(EfficientSegConfig(num_classes=num_classes,
                                             compound_coef=cfg.compound_coef,
-                                            compute_dtype=torch.bfloat16, quant=quant))
+                                            compute_dtype=torch.bfloat16, quant=quant,
+                                            backbone=cfg.get("backbone")))
     init_random(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device).eval()
 

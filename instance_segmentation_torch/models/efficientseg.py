@@ -2,6 +2,11 @@
 compound_coef 8) -> anchor box/class
 heads, plus the U-Net kp/ae/tan decoder over [input, P1..P5].
 
+``cfg.compound_coef`` sets the BiFPN, the heads and their anchors, and by
+default the backbone (EfficientNet-B``BACKBONE_COEF[coef]``);
+``cfg.backbone`` names another (``models/efficientnet.BACKBONES``: the
+B-series or EfficientNetV2-S/M/L), whose P3..P5 the BiFPN then takes.
+
 Counterpart of ``instance_segmentation_tpu/models/efficientseg.py`` with the
 standard layout (``apply(train=..., packed_heads=False)``, no space-to-depth).
 Input: NHWC uint8 (or float) images; normalization happens inside the model.
@@ -29,7 +34,8 @@ the forward (the backbone generator is rewound for it), so a step with
 ``remat`` computes what a step without it computes.
 
 ``cfg.quant == "int8"`` (reference ``quant``) runs the MBConv expand and
-project convs and the U-Net's 3x3 convs through the int8 path outside
+project convs, the fused blocks' 1x1 project convs and the U-Net's 3x3
+convs through the int8 path outside
 training (``layers.int8_conv2d``), with the float model's parameters.
 
 Under a spatial mesh (``parallel/spatial.sharded(mesh)``, S > 1 spatial
@@ -55,7 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from instance_segmentation_torch.models.bifpn import BiFPN
 from instance_segmentation_torch.models.efficientnet import (
-    EfficientNetFeatures, feature_channels,
+    EfficientNetFeatures, backbone_name, feature_channels,
 )
 from instance_segmentation_torch.models.heads import Classifier, Regressor
 from instance_segmentation_torch.models.layers import (
@@ -89,12 +95,22 @@ class EfficientSegConfig:
     drop_connect_rate: float = 0.2      # backbone stochastic depth, training only
     remat: bool = False                 # recompute backbone and decoder activations in backward
     quant: str = "none"                 # "none" | "int8": int8 dense convs outside training
+    backbone: Optional[str] = None      # None: EfficientNet-B<BACKBONE_COEF[compound_coef]>
 
     def __post_init__(self):
         if not 0 <= self.compound_coef <= 8:
             raise ValueError(f"compound_coef {self.compound_coef}: 0..8")
         if self.quant not in ("none", "int8"):
             raise ValueError(f"quant {self.quant!r}: 'none' or 'int8'")
+        if self.backbone is not None:
+            backbone_name(self.backbone)
+
+    @property
+    def backbone_name(self) -> str:
+        """The backbone built: ``backbone``, or the coefficient's B-series."""
+        if self.backbone is None:
+            return f"efficientnet-b{BACKBONE_COEF[self.compound_coef]}"
+        return self.backbone
 
     @property
     def num_anchors(self) -> int:
@@ -152,13 +168,12 @@ class EfficientSeg(nn.Module):
         super().__init__()
         self.cfg = cfg
         coef = cfg.compound_coef
-        variant = BACKBONE_COEF[coef]
-        chans = feature_channels(variant)
+        chans = feature_channels(cfg.backbone_name)
         fpn_ch = FPN_FILTERS[coef]
         levels = PYRAMID_LEVELS[coef]
         quant = cfg.quant == "int8"
         self.backbone_net = nn.ModuleDict(
-            {"model": EfficientNetFeatures(variant, cfg.drop_connect_rate, quant)})
+            {"model": EfficientNetFeatures(cfg.backbone_name, cfg.drop_connect_rate, quant)})
         self.bifpn = BiFPN(fpn_ch, chans[2:5], FPN_REPEATS[coef], attention=coef < 6,
                            use_p8=coef > 7)
         self.regressor = Regressor(fpn_ch, cfg.num_anchors, BOX_CLASS_REPEATS[coef],

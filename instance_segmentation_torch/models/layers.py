@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from instance_segmentation_torch.parallel import spatial
+from instance_segmentation_torch.utils.profiling import span
 
 # Detector-side BN constants and U-Net BN constants (reference layers.py
 # BN_MOMENTUM_DET/BN_EPS_DET and BN_MOMENTUM_UNET/BN_EPS_UNET). Momentum is
@@ -247,19 +248,22 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 class _AllReduceSum(torch.autograd.Function):
     """The sum of ``x`` over the ranks of ``group``. Every rank's loss depends
-    on the sum, so the backward sums the cotangent over the ranks too."""
+    on the sum, so the backward sums the cotangent over the ranks too. Each
+    all-reduce opens an "allreduce:bn" span."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
         ctx.group = group
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        with span("allreduce:bn"):
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
+        with span("allreduce:bn"):
+            dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
 

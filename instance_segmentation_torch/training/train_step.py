@@ -17,7 +17,10 @@ norms take the statistics of the global batch, the kp focal loss its global
 normaliser, and ``DistributedDataParallel`` averages the gradients, so N
 ranks compute the losses, gradients and batch statistics one device
 computes on the whole batch. Drop-connect stays per rank: its generator is
-seeded ``drop_seed + rank``, so its masks differ from one device's.
+seeded ``drop_seed + rank``, so its masks differ from one device's. Each
+gradient bucket's all-reduce (DDP's default, through a comm hook) opens an
+"allreduce:grad" span, as each batch-norm statistics' all-reduce opens
+"allreduce:bn" (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
 from torch.nn.parallel import DistributedDataParallel
 
 from instance_segmentation_torch.device import require_cuda
@@ -61,6 +65,13 @@ def make_optimizer(params, opt_type: str = "Adam", lr: float = 2e-5,
     if opt_type == "Adadelta":
         return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6)
     raise ValueError(f"unknown optimizer type: {opt_type}")
+
+
+def allreduce_hook(process_group, bucket):  # unannotated: DDP checks unresolved annotations
+    """DDP's default all-reduce of a gradient bucket (the mean over the
+    ranks), inside an "allreduce:grad" span."""
+    with span("allreduce:grad"):
+        return default_hooks.allreduce_hook(process_group, bucket)
 
 
 class Trainer:
@@ -112,6 +123,7 @@ class Trainer:
             self.forward = DistributedDataParallel(
                 self.model, device_ids=None if index is None else [index],
                 process_group=group, broadcast_buffers=False, find_unused_parameters=False)
+            self.forward.register_comm_hook(group, allreduce_hook)
         self.optimizer = make_optimizer(self.model.parameters(), opt_type, lr, momentum)
         anchors = generate_anchors(*self.input_hw, pyramid_levels=cfg.pyramid_levels,
                                    anchor_scale=cfg.anchor_scale, scales=cfg.scales,

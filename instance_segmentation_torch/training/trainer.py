@@ -80,7 +80,8 @@ class Trainer:
         self.model_cfg = EfficientSegConfig(
             num_classes=num_classes, compound_coef=cfg.compound_coef,
             scales=scales, ratios=ratios, compute_dtype=dtype,
-            remat=bool(tpu_cfg.get("remat")) if tpu_cfg else False)
+            remat=bool(tpu_cfg.get("remat")) if tpu_cfg else False,
+            backbone=cfg.get("backbone"))
 
         opt = cfg.optimizer
         lr = float(parse_anchor_expr(opt.lr)) if isinstance(opt.lr, str) else float(opt.lr)

@@ -6,7 +6,8 @@ package's ``tools/convert_torch_weights.py`` (there, ``jax.tree.map``
 copies the template tree; here ``_copy_tree`` does). The port's own
 ``state_dict`` uses the reference's names and layouts, so it converts the
 same way. ``tests/test_torch_trainer.py`` holds the copy equal to the
-original.
+original. Beyond the original, a block without a depthwise conv (an
+EfficientNetV2 fused block) maps its other convs.
 
 Layout notes (as there):
   * torch conv weights are OIHW -> flax HWIO (transpose 2,3,1,0); depthwise
@@ -117,9 +118,10 @@ def convert_state_dict(sd: Dict[str, Any], variables: Dict, compound_coef: int,
             n += _set(params, f + ("expand_conv", "Conv_0", "kernel"),
                       _conv(sd[f"{t}._expand_conv.conv.weight"]), strict)
             n += _bn_entries(params, stats, f + ("bn0",), f"{t}._bn0", sd, strict)
-        n += _set(params, f + ("depthwise_conv", "Conv_0", "kernel"),
-                  _conv(sd[f"{t}._depthwise_conv.conv.weight"]), strict)
-        n += _bn_entries(params, stats, f + ("bn1",), f"{t}._bn1", sd, strict)
+        if f"{t}._depthwise_conv.conv.weight" in sd:      # none in a fused block
+            n += _set(params, f + ("depthwise_conv", "Conv_0", "kernel"),
+                      _conv(sd[f"{t}._depthwise_conv.conv.weight"]), strict)
+            n += _bn_entries(params, stats, f + ("bn1",), f"{t}._bn1", sd, strict)
         if f"{t}._se_reduce.conv.weight" in sd:
             for se_t, se_f in [("_se_reduce", "reduce"), ("_se_expand", "expand")]:
                 n += _set(params, f + ("se", se_f, "Conv_0", "kernel"),

@@ -10,7 +10,8 @@ package, on one synthetic Cityscapes tree (the JAX tool's, 128x256):
   brightness), and the epochs differ: the epoch mixes each worker's seed;
 * the workers live on across complete epochs; an early exit stops them; a
   failing dataset item raises ``RuntimeError`` in the parent, and so does a
-  worker that dies, with no fallback to serial loading; a program that ends
+  worker that dies, also one cut off in the middle of sending a batch, with
+  no fallback to serial loading; a program that ends
   with a pool still open leaves no process behind it (fork server included);
 * ``ISEG_DATA_WORKERS`` sets the pool's size when ``num_workers`` is None;
 * the preprocess tool's outputs (``.npz`` arrays, ``_img.npy``, manifest)
@@ -23,6 +24,8 @@ import os
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -55,6 +58,18 @@ class DyingDataset(tcs.CityscapesDataset):
         if index == 2:
             os._exit(3)
         return super().__getitem__(index)
+
+
+class DyingMidBatchDataset(tcs.CityscapesDataset):
+    """Item 1 is a 16 MB image, and its process ends 0.5 s after reading
+    it: while the parent is not reading, in the middle of sending it."""
+
+    def __getitem__(self, index):
+        img, label, info = super().__getitem__(index)
+        if index == 1:
+            threading.Timer(0.5, os._exit, (3,)).start()
+            img = np.zeros((2048, 2048, 4), np.uint8)
+        return img, label, info
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +160,18 @@ def test_a_dying_worker_raises_in_the_parent(tree):
                           dataset=DyingDataset(tree, val, subset="val"))
     with pytest.raises(RuntimeError, match="died"):
         list(loader)
+    assert loader._pool is None and not mp.active_children()
+
+
+def test_a_worker_dying_while_sending_raises_in_the_parent(tree):
+    val = TTransforms(TConfiger(VAL), "val")
+    loader = _port_loader(tree, "val", 1, 1, val,
+                          dataset=DyingMidBatchDataset(tree, val, subset="val"))
+    it = iter(loader)
+    next(it)
+    time.sleep(2.0)             # the worker ends with its next batch half in the pipe
+    with pytest.raises(RuntimeError, match="died"):
+        next(it)
     assert loader._pool is None and not mp.active_children()
 
 

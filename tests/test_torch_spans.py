@@ -1,21 +1,25 @@
 """The port's spans (``utils/profiling.span``) on the CPU, with a
 ``serve.Predictor`` of EfficientSeg-B0 at 128x256 on seeded weights
 (kp_th 2000): under ``torch.profiler`` one ``predict`` opens each stage span
-once and "sync:nms" once per host read of NMS's loop condition (each
+(the backbone's "backbone.mbconv" among them) once and "sync:nms" once per host read of NMS's loop condition (each
 evaluation, the first read twice as ``while_loop_op``'s eager path reads
 it); with no profiler it opens no range at all; its detections are the same
 bit for bit with a profiler and without; under tracing NMS keeps its
-``while_loop_op``; the train step opens its five stage ranges."""
+``while_loop_op``; the train step opens its five stage ranges, and a
+data-parallel step on two gloo ranks one "allreduce:bn" span per sync batch
+norm each way and "allreduce:grad" spans around DDP's gradient buckets."""
 
 import collections
+import os
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from instance_segmentation_torch.models import EfficientSegConfig
+from instance_segmentation_torch.models import EfficientSegConfig, layers
 from instance_segmentation_torch.ops import decode
+from instance_segmentation_torch.parallel import multihost
 from instance_segmentation_torch.serve import Predictor
 from instance_segmentation_torch.training.synthetic import bench_train_batch
 from instance_segmentation_torch.training.train_step import Trainer
@@ -24,7 +28,7 @@ from instance_segmentation_torch.utils import profiling
 torch.set_num_threads(2)
 H, W = 128, 256
 STAGES = ("upload", "forward", "decode", "decode.boxes", "decode.peaks", "decode.embed",
-          "decode.group", "decode.assemble")
+          "decode.group", "decode.assemble", "backbone.mbconv")   # B0: MBConv blocks alone
 
 
 @pytest.fixture(scope="module")
@@ -129,3 +133,28 @@ def test_train_step_opens_its_five_ranges():
     _, ranges = _traced(lambda: trainer.step(*batch))
     stages = ("targets", "forward", "loss", "backward", "optimizer")
     assert {name: ranges[name] for name in stages} == dict.fromkeys(stages, 1)
+
+
+def _ddp_rank(rank, world, init_method, out_dir):
+    torch.set_num_threads(1)
+    multihost.maybe_initialize("cpu", init_method=init_method, rank=rank, world_size=world)
+    try:
+        cfg = EfficientSegConfig(num_classes=8, compound_coef=0)
+        trainer = Trainer(cfg, torch.Generator().manual_seed(0), (H, W), max_points=64,
+                          lr=2e-5, device=torch.device("cpu"), group=torch.distributed.group.WORLD)
+        frames, labels = bench_train_batch(2, 8, H, W, n_real=4)
+        batch = [torch.from_numpy(a) for a in (frames, *labels)]
+        _, ranges = _traced(lambda: trainer.step(*batch))
+        n_bn = sum(isinstance(m, layers.BatchNorm) for m in trainer.model.modules())
+        torch.save((dict(ranges), n_bn), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_ddp_step_opens_allreduce_spans(tmp_path):
+    multihost.spawn(_ddp_rank, 2, (f"file://{tmp_path}/rendezvous", str(tmp_path)), timeout=300)
+    for rank in range(2):
+        ranges, n_bn = torch.load(tmp_path / f"rank{rank}.pt")
+        assert n_bn > 100
+        assert ranges["allreduce:bn"] == 2 * n_bn        # each batch norm's forward and backward
+        assert ranges["allreduce:grad"] >= 1             # DDP's buckets, through the comm hook
