@@ -14,14 +14,21 @@ Phases, one result line each; any failure raises and exits non-zero:
      order and in the decode's ascending pixel order; wrapper, twin (on the
      card) and kernel-alone times beside the bound; then on edge cases (NaN,
      inf and underflow in the scores, D = 1 and 1024, K not a multiple of
-     the block, no box near the keypoints), in both orders;
+     the block, no box near the keypoints), in both orders; then the NMS
+     kernel (``csrc/nms.cu``) against its twin (the eager fixpoint on the
+     CPU) at the serving decode's B=1 and B=8, K=512, with wrapper, kernel
+     alone and the eager sweeps it replaced (host clock) beside its bound;
   4. decode of a synthetic two-square scene on the card (through K1) against
      the same decode on the CPU (plain grouping);
   5. the serving slice: an EfficientSeg-B3 ``Predictor`` in bf16 at 512x1024
      (frames of a 1024x2048 image at scale 2), seeded untrained weights,
-     default decode, answering 3 requests at batch 1 and 3 at batch 8; then
-     K1 held and timed as in phase 3 on the inputs it got in the first b8
-     call (a warm-up);
+     default decode, answering 3 requests at batch 1 and 3 at batch 8: K1
+     launched once a request; the NMS kernel launched by the host once a
+     shape's eager request (the warm-ups) and once a capture (the shape's
+     second request), and on the card once a replayed request (counted in
+     a profiler window of 3 more requests of each batch size); then K1 held
+     and timed as in phase 3 on the inputs it got in the first b8 call (a
+     warm-up);
   6. build kernels K2-K6 (``csrc/rasterize.cu``, ``csrc/ae_terms.cu``), one
      ``-Xptxas -v`` line per kernel;
   7. K2, K5, K3 and K4 against their plain twins at the train cell's shapes
@@ -171,8 +178,9 @@ Phases, one result line each; any failure raises and exits non-zero:
      supported percentile), img/s, device kernels and launches per request,
      K1 once a decode (held); (b) ``tools/profile_decode`` at b8 with the
      exact and the value-ordered top-k: each stage's ms and leader_nms's
-     host reads, the staged Detections equal to ``decode_output``'s bit for
-     bit (the tool raises otherwise), K1 once a decode; then the
+     host reads (0: NMS is a kernel on the card), the staged Detections
+     equal to ``decode_output``'s bit for bit (the tool raises otherwise),
+     K1 once a decode; then the
      value-ordered top-k of the serving slice's b8 keypoint map held equal
      across its ``torch.topk`` form, a stable sort of the keys and the CPU,
      ``select_peaks_batch`` card == CPU in both modes, the forms, the
@@ -268,7 +276,8 @@ from instance_segmentation_torch.data.cityscapes import CityscapesDataset, parse
 from instance_segmentation_torch.data.packed_dataset import PackedCityscapesDataset
 from instance_segmentation_torch.device import nvidia_smi_name_power, require_cuda
 from instance_segmentation_torch.evaluation import device_iou, eval_loop
-from instance_segmentation_torch.kernels import ae_terms, affinity, bounds, build, minr2, rasterize
+from instance_segmentation_torch.kernels import (ae_terms, affinity, bounds, build, minr2, nms,
+                                                 rasterize)
 from instance_segmentation_torch.losses import losses
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.models.efficientseg import INPUT_SIZES
@@ -301,6 +310,7 @@ FULLRES_RUNS = (("--batch", "1"), ("--batch", "1", "--remat"), ("--batch", "4"),
                 ("--batch", "4", "--remat"), ("--batch", "4", "--ae-window", "256", "512"))
 FULLRES_ITERS = 3
 KERNELS = ("affinity", "rasterize", "ae_terms")
+NMS_SHAPES = ((1, 512), (8, 512))       # B, K (pre_nms): the serving decode's NMS at b1 and b8
 EVAL_IMAGES, EVAL_HW, EVAL_BATCHES = 8, (1024, 2048), (2, 8)
 EVAL_INPUT, EVAL_COMPOUND = (512, 1024), 3   # eval_cfg.yaml's input at scale 2, B3
 SCENE_SQUARES = (((20, 30), (60, 70), 0), ((80, 100), (110, 150), 1))
@@ -588,6 +598,57 @@ def phase_affinity(dev: torch.device, strict: bool = True) -> None:
     hold_affinity_edge_cases(dev, strict)
 
 
+def nms_inputs(b: int, k: int, seed: int = 0, iou_th: float = 0.2):
+    """(sup [b, k, k], valid [b, k]) of ``leader_nms`` on a serving-like set:
+    k rank-sorted boxes of 10-200 px in a 512x1024 frame, 8 classes (the
+    class offset apart), 90% valid."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, (1024, 512), (b, k, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(10, 200, (b, k, 2))], -1).astype(np.float32)
+    boxes += (rng.integers(0, 8, (b, k, 1)) * 3072.0 * np.array([1, 0, 1, 0])).astype(np.float32)
+    boxes = torch.from_numpy(boxes)
+    rank = torch.arange(k)
+    sup = (decode._iou_xyxy(boxes) > iou_th) & (rank[:, None] < rank[None, :])
+    return sup, torch.from_numpy(rng.uniform(size=(b, k)) > 0.1)
+
+
+def phase_nms(dev: torch.device) -> list:
+    """The NMS kernel against its twin (the eager fixpoint on the CPU) at the
+    serving decode's shapes, timed: the wrapper, the kernel alone, and the
+    route it replaced (the fixpoint's sweeps on the card, a host read after
+    each, by host clock), beside its bound."""
+    records = []
+    for b, k in NMS_SHAPES:
+        sup, valid = nms_inputs(b, k)
+        want = nms.nms_keep_plain(sup, valid)
+        sup_d, valid_d = sup.to(dev), valid.to(dev)
+        before = nms.launches
+        got = nms.nms_keep(sup_d, valid_d)
+        torch.cuda.synchronize()
+        check(nms.launches == before + 1, "the NMS kernel did not launch")
+        check(torch.equal(got.cpu(), want), f"NMS kernel != twin at B={b}, K={k}")
+        wrapper = cuda_median_ms(lambda: nms.nms_keep(sup_d, valid_d))
+        own = own_time(lambda: nms.nms_keep(sup_d, valid_d))
+
+        def sweeps():
+            nms.nms_keep_plain(sup_d, valid_d)
+            torch.cuda.synchronize()
+        eager = timed_ms(sweeps, runs=20)
+        work = bounds.nms_keep(sup, valid)
+        least, by = bounds.bound(work.bytes, work.ops)
+        print(f"[3] NMS kernel B={b} K={k}: == twin ({int(want.sum())} kept of "
+              f"{int(valid.sum())} valid); wrapper {wrapper:.4f} ms, {own_text(own)}; the "
+              f"eager sweeps on the card {np.median(eager):.4f} ms a call (host clock, "
+              f"{len(eager)} calls); bound {least:.6f} ms ({by}), share alone "
+              f"{100 * least / own[0]:.2f}%", flush=True)
+        records.append({"name": "nms", "shape": [b, k], "wrapper_ms": wrapper,
+                        "alone_ms": own[0], "eager_sweeps_ms": float(np.median(eager)),
+                        "bound_ms": least, "kernels_per_call": own[1]})
+    for line in build.ptxas_usage("nms"):
+        print(f"[3] ptxas nms.cu {line}", flush=True)
+    return records
+
+
 def phase_decode(dev: torch.device, cfg: DecodeConfig = SCENE_DECODE, tag: str = "[4]") -> None:
     """Synthetic scene: card (K1 grouping) against CPU (plain grouping)."""
     outputs, anchors = synthetic_scene(margin=0.5)
@@ -621,20 +682,23 @@ first_k1_inputs = multichip.first_k1_inputs
 
 def phase_slice(dev: torch.device, smi: str):
     """B3 512x1024 bf16 Predictor: 3 requests at b1 and 3 at b8. Returns the
-    number of K1 launches made by those requests, the inputs K1 got in the
+    launches ({"affinity": K1's in those requests, "nms": {batch: the NMS
+    kernel's on the card per replayed request}}), the inputs K1 got in the
     first b8 call (a warm-up) and the median ms per batch and peak memory."""
     cfg = EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16)
     dcfg = DecodeConfig()
     pred = Predictor(cfg, dcfg, torch.Generator().manual_seed(0), dev,
                      orig_hw=(1024, 2048), scale=2.0)
     frames = np.random.default_rng(0).integers(0, 256, (8, 512, 1024, 3), dtype=np.uint8)
+    nms.launches = 0
     pred.predict(frames[:1])              # warm-up, not counted
     with first_k1_inputs() as served:     # the first b8 call's grouping inputs
         pred.predict(frames)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    check(nms.launches == 2, f"NMS launched {nms.launches} times in 2 eager requests")
 
-    affinity.launches = 0
+    affinity.launches = nms.launches = 0
     requests = [(1, frames[i:i + 1]) for i in range(3)] + [(8, frames)] * 3
     times = {1: [], 8: []}
     results = []
@@ -645,6 +709,7 @@ def phase_slice(dev: torch.device, smi: str):
         times[b].append(time.perf_counter() - t0)
         results.append((b, dets))
     launches = affinity.launches
+    captures = nms.launches
     medians = {b: 1e3 * float(np.median(t)) for b, t in times.items()}
 
     for b, dets in results:
@@ -657,6 +722,11 @@ def phase_slice(dev: torch.device, smi: str):
             check(bool(torch.isfinite(getattr(dets, name)).all()), f"{name} not finite")
     check(launches == len(requests), f"K1 launched {launches} times for {len(requests)} requests")
     peak = torch.cuda.max_memory_allocated(dev)
+    replayed = {b: kernel_timing.launches_per_call(lambda x=x: pred.predict(x), "nms_kernel", 3)
+                for b, x in ((1, frames[:1]), (8, frames))}
+    check(captures == 2, f"NMS launched {captures} times by the host in the 6 requests, "
+          "want 2 (one capture a batch size)")
+    check(replayed == {1: 1.0, 8: 1.0}, f"NMS kernels on the card per replayed request: {replayed}")
     n_det = [int(d.det_valid.sum()) for _, d in results]
     n_obj = [int(d.obj_valid.sum()) for _, d in results]
     for b in (1, 8):
@@ -664,10 +734,13 @@ def phase_slice(dev: torch.device, smi: str):
         print(f"[5] B3 512x1024 bf16 batch {b}: ms/request {[round(t, 3) for t in ms]} "
               f"(median {np.median(ms):.3f}), img/s {1e3 * b / np.median(ms):.2f}; "
               f"[{smi}]", flush=True)
-    print(f"[5] K1 launches in the 6 requests: {launches}; detections {n_det}, "
-          f"objects {n_obj}; peak device memory {peak} B ({peak / 2**30:.2f} GiB); "
-          f"[{smi}]", flush=True)
-    return launches, served, {"ms": medians, "peak_bytes": peak}
+    print(f"[5] K1 launches in the 6 requests: {launches}; NMS launches by the host: 2 in "
+          f"the 2 eager warm-ups, {captures} in the 6 requests (the captures); NMS kernels "
+          f"on the card per replayed request (profiler, 3 requests a batch size): b1 "
+          f"{replayed[1]:g}, b8 {replayed[8]:g}; detections {n_det}, objects {n_obj}; peak "
+          f"device memory {peak} B ({peak / 2**30:.2f} GiB); [{smi}]", flush=True)
+    return ({"affinity": launches, "nms": replayed}, served,
+            {"ms": medians, "peak_bytes": peak})
 
 
 def phase_train_kernels(dev: torch.device) -> list:
@@ -2336,7 +2409,7 @@ def phase_tools_process() -> None:
 ROOFLINE_RUNS = (  # (label, flags, the kernels of its path)
     ("train b8", ("--batch", "8"),
      ("rasterize_cnt_r2", "rasterize_nmap", "ae_terms_fwd", "ae_terms_bwd")),
-    ("eval b8", ("--eval", "--batch", "8", "--by", "block"), ("affinity_assign",)),
+    ("eval b8", ("--eval", "--batch", "8", "--by", "block"), ("affinity_assign", "nms_keep")),
     ("fullres b4", ("--fullres", "--batch", "4"),
      ("minr2_from_cnt", "ae_terms_fwd", "ae_terms_bwd", "rasterize_nmap")))
 ROOFLINE_ITERS = 5
@@ -2486,17 +2559,20 @@ def main() -> None:
     print(f"[1] device {name} (count {torch.cuda.device_count()}); nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    built = build.build_all(KERNELS + HOST_HELPERS)
+    built = build.build_all(KERNELS + ("nms",) + HOST_HELPERS)
     lib, seconds = built["affinity"]
     build.load("affinity")
     print(f"[2] built K1 {lib.relative_to(build.BUILD_DIR.parents[1])} in "
           f"{seconds:.2f} s; ptxas: {'; '.join(build.ptxas_usage('affinity'))}", flush=True)
 
     phase_affinity(dev)
+    nms_records = phase_nms(dev)
     phase_decode(dev)
     launches, served, one_card = phase_slice(dev, smi)
     record = hold_affinity(5, "the serving slice's first b8 call", served)
-    record["launches"] = launches
+    record["launches"] = launches["affinity"]
+    for r in nms_records:                 # per replayed request at the record's batch
+        r["launches"] = launches["nms"][r["shape"][0]]
 
     for kernel in KERNELS[1:]:
         build.load(kernel)
@@ -2523,7 +2599,7 @@ def main() -> None:
     phase_roofline()
     phase_processes()
 
-    print(json.dumps({"kernels": [record] + records + [k6_record]}))
+    print(json.dumps({"kernels": [record] + nms_records + records + [k6_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

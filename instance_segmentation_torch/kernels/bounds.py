@@ -85,6 +85,14 @@ def affinity_assign(kp_rc, emb, sig, c_emb, boxes, det_valid) -> Work:
     return Work(b * k * (24 + 8) + b * d * (8 + 16 + 1), 4 * valid_pairs + 10 * contained)
 
 
+def nms_keep(sup, valid) -> Work:
+    """The NMS kernel reads the strict upper triangle of the suppression
+    matrix (K(K-1)/2 B) and the validity (K B) and writes the keep mask (K B)
+    per image; its work is bit logic, no float32 operations."""
+    b, k = valid.shape
+    return Work(b * (k * (k - 1) // 2 + 2 * k), 0)
+
+
 def rasterize_cnt_r2(points, pt_valid, h: int, w: int) -> Work:
     """K2 reads the point list once and writes cnt (2 B), r2 (1 B) and the
     union; its work is integer counting and min, no float32 operations."""
@@ -158,13 +166,14 @@ def ae_terms_bwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp, g_pos=None, g_neg=None
 # each wrapper's work, by the name its launch count has
 WORK = {"affinity_assign": affinity_assign, "rasterize_cnt_r2": rasterize_cnt_r2,
         "rasterize_nmap": rasterize_nmap, "ae_terms_fwd": ae_terms_fwd,
-        "ae_terms_bwd": ae_terms_bwd, "minr2_from_cnt": minr2_from_cnt}
+        "ae_terms_bwd": ae_terms_bwd, "minr2_from_cnt": minr2_from_cnt, "nms_keep": nms_keep}
 # each device kernel of the port (the ``*_kernel`` in its name) -> its wrapper
 DEVICE_KERNELS: Dict[str, str] = {
     "affinity_kernel": "affinity_assign", "cnt_r2_kernel": "rasterize_cnt_r2",
     "nmap_bin_kernel": "rasterize_nmap", "nmap_band_kernel": "rasterize_nmap",
     "ae_fwd_kernel": "ae_terms_fwd", "ae_sum_kernel": "ae_terms_fwd",
-    "ae_bwd_kernel": "ae_terms_bwd", "minr2_kernel": "minr2_from_cnt"}
-# the TPU kernel each wrapper replaces, K1-K6
+    "ae_bwd_kernel": "ae_terms_bwd", "minr2_kernel": "minr2_from_cnt", "nms_kernel": "nms_keep"}
+# the TPU kernel each wrapper replaces, K1-K6 (NMS replaces none)
 TAGS = {"affinity_assign": "K1", "rasterize_cnt_r2": "K2", "ae_terms_fwd": "K3",
-        "ae_terms_bwd": "K4", "rasterize_nmap": "K5", "minr2_from_cnt": "K6"}
+        "ae_terms_bwd": "K4", "rasterize_nmap": "K5", "minr2_from_cnt": "K6",
+        "nms_keep": "NMS"}

@@ -45,9 +45,10 @@ import torch.nn.functional as F
 from torch._higher_order_ops.while_loop import while_loop_op
 
 from instance_segmentation_torch.kernels.affinity import affinity_assign
+from instance_segmentation_torch.kernels.nms import nms_keep
 from instance_segmentation_torch.ops.kmeans import kmeans
 from instance_segmentation_torch.ops.geometry import fma, point_in_polygon, rasterize_polygon
-from instance_segmentation_torch.utils.profiling import NO_SPAN, span
+from instance_segmentation_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -164,20 +165,26 @@ def leader_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float,
     (unique, reached within K sweeps; in practice 2-6). Under ``torch.export``
     or ``torch.compile`` the sweeps run in ``torch.while_loop``'s operator,
     as the JAX decode's ``lax.while_loop``, so that the program captures the
-    loop; eagerly they run as that operator runs them (``_nms_eager``),
-    reading the condition on the host once a sweep. Returns the first
-    ``max_out`` kept indices (-1 where fewer were kept) and their
-    validity."""
+    loop. Eagerly, CUDA tensors compute the fixpoint in one kernel
+    (``kernels/nms.py``, the sequential greedy walk, with no host read), and
+    CPU tensors run the sweeps as that operator runs them (``_nms_eager``),
+    reading the condition on the host once a sweep. Either way the IoUs and
+    the threshold are PyTorch's. Returns the first ``max_out`` kept indices
+    (-1 where fewer were kept) and their validity."""
     K = boxes.shape[-2]
     rank = torch.arange(K, device=boxes.device)
     # sup[..., j, i]: keeping j suppresses i (strictly lower rank suppresses)
     sup = (_iou_xyxy(boxes) > iou_th) & (rank[:, None] < rank[None, :])
-    sweeps = torch.zeros((), dtype=torch.int64, device=boxes.device)
-    carried = (valid.clone(), ~valid, sweeps)
-    if torch.compiler.is_compiling():
-        keep, _, _ = while_loop_op(_nms_unsettled, _nms_sweep, carried, (valid, sup))
+    if boxes.is_cuda and not torch.compiler.is_compiling():
+        keep = nms_keep(sup.reshape(-1, K, K).contiguous(),
+                        valid.reshape(-1, K).contiguous()).view(valid.shape)
     else:
-        keep = _nms_eager(carried, (valid, sup))
+        sweeps = torch.zeros((), dtype=torch.int64, device=boxes.device)
+        carried = (valid.clone(), ~valid, sweeps)
+        if torch.compiler.is_compiling():
+            keep, _, _ = while_loop_op(_nms_unsettled, _nms_sweep, carried, (valid, sup))
+        else:
+            keep = _nms_eager(carried, (valid, sup))
     order = torch.argsort(torch.where(keep, rank, K + rank), dim=-1)
     idx = order[..., :max_out]
     ok = keep.gather(-1, idx)
@@ -198,6 +205,15 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_th: float) -> torch
     return keep
 
 
+def _x_columns(device: torch.device) -> torch.Tensor:
+    """[1, 0, 1, 0] float32, the x columns of an xyxy box, filled on
+    ``device``: no copy from the host, which a CUDA graph cannot hold and
+    which waits for the stream."""
+    mask = torch.zeros(4, device=device)
+    mask[0::2] = 1.0
+    return mask
+
+
 def decode_boxes(classification: torch.Tensor, regression: torch.Tensor,
                  anchors: torch.Tensor, h: int, w: int, cfg: DecodeConfig):
     """Batched box decode -> (boxes [B,D,4] xyxy, scores, classes int32, valid)."""
@@ -212,10 +228,7 @@ def decode_boxes(classification: torch.Tensor, regression: torch.Tensor,
     valid_k = top_s > cfg.cls_th
     # class-aware NMS via coordinate offsetting (one NMS for all classes)
     off = (c_k.float() * (w + h) * 2.0)[..., None]
-    # a list copied to the card waits for the stream (a blocking copy)
-    with span("sync:class_offset") if off.is_cuda else NO_SPAN:
-        x_only = torch.tensor([1.0, 0.0, 1.0, 0.0], device=off.device)
-    shifted = b_k + off * x_only
+    shifted = b_k + off * _x_columns(off.device)
     order, keep = leader_nms(shifted, valid_k, cfg.iou_th, cfg.max_dets)
     order = order.clamp(0, cfg.pre_nms - 1)
     return (b_k.gather(1, order[..., None].expand(-1, -1, 4)),
@@ -479,8 +492,7 @@ def decode_centers(conf_hm: torch.Tensor, cls_hm: torch.Tensor, wh_map: torch.Te
                           stable=True)
     boxes_s, ok_s = boxes[order], ok[order]
     off = (cls[order].float() * (H + W) * 2.0)[:, None]
-    shift = torch.tensor([1.0, 0.0, 1.0, 0.0], device=off.device)
-    keep_idx, keep_ok = leader_nms(boxes_s + off * shift, ok_s, iou_th, max_out)
+    keep_idx, keep_ok = leader_nms(boxes_s + off * _x_columns(off.device), ok_s, iou_th, max_out)
     sel = order[keep_idx.clamp(0, boxes_s.shape[0] - 1)]
     centers = torch.stack([rr[sel], cc[sel]], dim=-1).int()
     return centers, cls[sel], conf[sel], wh[sel], keep_ok
@@ -531,40 +543,78 @@ def group_keypoints(kp_rc, kp_ok, emb, sig, c_emb, boxes, det_valid,
     return assign
 
 
+class Candidates(NamedTuple):
+    """The decode up to the grouping (``decode_candidates``)."""
+    boxes: torch.Tensor       # [B, D, 4] float32 (x1, y1, x2, y2) input-res
+    scores: torch.Tensor      # [B, D] float32
+    classes: torch.Tensor     # [B, D] int32
+    det_valid: torch.Tensor   # [B, D] bool
+    kp_rc: torch.Tensor       # [B, K, 2] float32 (row, col) of the boundary peaks
+    kp_ok: torch.Tensor       # [B, K] bool: a peak
+    emb: torch.Tensor         # [B, K, 2] float32
+    sig: torch.Tensor         # [B, K, 2] float32
+    c_emb: torch.Tensor       # [B, D, 2] float32
+
+
+def decode_candidates(outputs, anchors: torch.Tensor, cfg: DecodeConfig) -> Candidates:
+    """The decode's first part: boxes and NMS ("decode.boxes"), the boundary
+    peaks ("decode.peaks") and the grouping's embeddings ("decode.embed"), at
+    fixed shapes and with no host wait on the device."""
+    kp, ae, _tan, regression, classification = outputs
+    H, W = kp.shape[1:3]
+    with span("decode.boxes"):
+        boxes, scores, classes, det_valid = decode_boxes(
+            classification, regression, anchors, H, W, cfg)
+    with span("decode.peaks"):
+        flat_idx, kp_ok = select_peaks_batch(kp[..., 0], cfg.kp_th, exact=cfg.exact_topk)
+    with span("decode.embed"):
+        kp_rc, emb, sig, c_emb = keypoint_embeddings(flat_idx, ae, boxes, H, W)
+    return Candidates(boxes, scores, classes, det_valid, kp_rc, kp_ok, emb, sig, c_emb)
+
+
+def group_candidates(cand: Candidates, cfg: DecodeConfig) -> torch.Tensor:
+    """The decode's second part ("decode.group"): ``group_keypoints`` on
+    ``cand``, each keypoint's detection [B, K]."""
+    if cfg.group_mode not in ("affinity", "kmeans"):
+        raise ValueError(f"group_mode={cfg.group_mode!r}: 'affinity' or 'kmeans'")
+    with span("decode.group"):
+        return group_keypoints(cand.kp_rc, cand.kp_ok, cand.emb, cand.sig, cand.c_emb,
+                               cand.boxes, cand.det_valid, cfg)
+
+
+def assemble_candidates(cand: Candidates, assign: torch.Tensor, in_hw: Tuple[int, int],
+                        orig_h: int, orig_w: int, scale_int: float,
+                        cfg: DecodeConfig) -> Detections:
+    """The decode's last part ("decode.assemble"): the polygons of the
+    grouped keypoints, with ``cand``'s detections."""
+    with span("decode.assemble"):
+        polys, lens, centers, obj_ok = assemble_objects(
+            cand.kp_rc, cand.kp_ok, assign, cand.boxes, cand.det_valid, *in_hw,
+            orig_h, orig_w, scale_int, cfg)
+    return Detections(boxes=cand.boxes, scores=cand.scores, classes=cand.classes,
+                      det_valid=cand.det_valid, polygons=polys, poly_len=lens,
+                      centers=centers, obj_valid=obj_ok)
+
+
 def decode_output(outputs, anchors: torch.Tensor, orig_h: int, orig_w: int,
                   scale_int: float, cfg: DecodeConfig = DecodeConfig()) -> Detections:
-    """Full decode of a model forward pass.
+    """Full decode of a model forward pass: ``decode_candidates``, then
+    ``group_candidates``, then ``assemble_candidates``.
 
     outputs = (kp [B,H,W,1], ae [B,H,W,4], tan, regression [B,A,4],
     classification [B,A,C]), float32, on one device; anchors [A, 4] on it.
-    Grouping runs kernel K1 on CUDA tensors and its plain version on CPU ones.
-    The decode runs in a span "decode", each stage in its own inside it
-    ("decode.boxes", NMS included; ".peaks"; ".embed"; ".group"; ".assemble"),
-    and each host wait on the card in a span "sync:<site>": "sync:nms" (a
-    read of NMS's loop condition) and "sync:class_offset" (the NMS class
-    offset's mask copied to the card).
+    Grouping runs kernel K1 on CUDA tensors and its plain version on CPU ones,
+    and so does NMS (``kernels/nms.py``). The decode runs in a span "decode",
+    each stage in its own inside it ("decode.boxes", NMS included; ".peaks";
+    ".embed"; ".group"; ".assemble"). On CPU tensors each host read of NMS's
+    loop condition opens a span "sync:nms"; on CUDA tensors the decode holds
+    no host wait on the card.
     """
-    if cfg.group_mode not in ("affinity", "kmeans"):
-        raise ValueError(f"group_mode={cfg.group_mode!r}: 'affinity' or 'kmeans'")
-    kp, ae, _tan, regression, classification = outputs
-    H, W = kp.shape[1:3]
-
     with span("decode"):
-        with span("decode.boxes"):
-            boxes, scores, classes, det_valid = decode_boxes(
-                classification, regression, anchors, H, W, cfg)
-        with span("decode.peaks"):
-            flat_idx, kp_ok = select_peaks_batch(kp[..., 0], cfg.kp_th, exact=cfg.exact_topk)
-        with span("decode.embed"):
-            kp_rc, emb, sig, c_emb = keypoint_embeddings(flat_idx, ae, boxes, H, W)
-        with span("decode.group"):
-            assign = group_keypoints(kp_rc, kp_ok, emb, sig, c_emb, boxes, det_valid, cfg)
-        with span("decode.assemble"):
-            polys, lens, centers, obj_ok = assemble_objects(
-                kp_rc, kp_ok, assign, boxes, det_valid, H, W, orig_h, orig_w, scale_int, cfg)
-    return Detections(boxes=boxes, scores=scores, classes=classes,
-                      det_valid=det_valid, polygons=polys, poly_len=lens,
-                      centers=centers, obj_valid=obj_ok)
+        cand = decode_candidates(outputs, anchors, cfg)
+        assign = group_candidates(cand, cfg)
+        return assemble_candidates(cand, assign, tuple(outputs[0].shape[1:3]),
+                                   orig_h, orig_w, scale_int, cfg)
 
 
 def forward_and_decode(model, images: torch.Tensor, anchors: torch.Tensor,

@@ -5,7 +5,8 @@ untrained weights and seeded uint8 frames, each stage of
 ``ops/decode.decode_output`` runs alone on the materialised outputs of the
 stage before it, each call between two synchronisations of the device:
 the model's eval forward, ``decode_boxes`` (with the host reads that
-``leader_nms``'s loop makes, one a sweep, counted), ``select_peaks_batch``
+``leader_nms``'s loop makes on the CPU, one a sweep, counted: 0 on the
+card, where NMS is one kernel, ``kernels/nms.py``), ``select_peaks_batch``
 (``--topk exact``: the bisection, ``approx``: the value-ordered top-k; the
 JAX tool reads ``ISEG_BENCH_TOPK`` in ``bench.py``), the grouping
 (``keypoint_embeddings`` and ``group_keypoints``: K1, then Lloyd steps with

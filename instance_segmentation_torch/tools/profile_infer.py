@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``tools/profile_infer.py``. For each batch
 it times, on seeded untrained weights and seeded uint8 frames, the model's
 eval forward, the decode of its outputs and the two composed
-(``forward_and_decode``, what ``serve.Predictor`` runs), each call between
+(``forward_and_decode``: what ``serve.Predictor`` runs eagerly, without its
+CUDA graphs), each call between
 two synchronisations of the device: the median and the highest percentile
 the sample supports, and img/s at the composed median. One composed request
 under ``torch.profiler`` gives the device kernels and launches per request

@@ -66,7 +66,7 @@ from instance_segmentation_torch.weights import init_random
 # the kernel wrappers, where the step calls them
 _WRAPPERS = ((rasterize, "rasterize_cnt_r2"), (rasterize, "rasterize_nmap"),
              (minr2, "minr2_from_cnt"), (ae_terms, "ae_terms_fwd"), (ae_terms, "ae_terms_bwd"),
-             (decode, "affinity_assign"))
+             (decode, "affinity_assign"), (decode, "nms_keep"))
 
 
 @contextlib.contextmanager

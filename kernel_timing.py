@@ -43,8 +43,9 @@ import torch
 
 ITERS = 20
 # the port's kernels, by name, for telling them from PyTorch's in a profile
-PORT_KERNELS = ("affinity_kernel", "cnt_r2_kernel", "minr2_kernel", "nmap_bin_kernel",
-                "nmap_band_kernel", "ae_fwd_kernel", "ae_sum_kernel", "ae_bwd_kernel")
+PORT_KERNELS = ("affinity_kernel", "nms_kernel", "cnt_r2_kernel", "minr2_kernel",
+                "nmap_bin_kernel", "nmap_band_kernel", "ae_fwd_kernel", "ae_sum_kernel",
+                "ae_bwd_kernel")
 _replays = None                  # inside own_ms: the device ms of each launch
 
 
@@ -135,6 +136,13 @@ def kernels_per_call(fn, calls: int = 10):
     device = _device_events(fn, calls)
     own = sum(any(k in e.name for k in PORT_KERNELS) for e in device)
     return round(len(device) / calls), round(own / calls)
+
+
+def launches_per_call(fn, name: str, calls: int = 10) -> float:
+    """Device launches of the kernels whose name holds ``name`` per call of
+    ``fn``: one ``torch.profiler`` window over ``calls`` calls after a
+    warm-up (a CUDA graph's kernels count, one by one)."""
+    return sum(name in e.name for e in _device_events(fn, calls)) / calls
 
 
 def device_split(fn, calls: int = 10) -> dict:

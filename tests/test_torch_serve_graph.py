@@ -15,8 +15,22 @@ next; a second batch size has its own graph; the benchmark's FLOP counter
 counts the same after the capture as before it; a forward hook fires once a
 request; a traced replay opens one ``graph:replay`` span inside ``forward``
 and shows the graph's kernels there.
+
+The decode's two graphs (``Predictor._decode``): on the CPU, the parts
+``decode_candidates``, ``group_candidates`` and ``assemble_candidates``
+compose to ``decode_output`` bit for bit (affinity and kmeans); the eager
+rule is the forward's; and, with a stand-in for ``serve._Graph`` that keeps
+its contract on the CPU, requests 1 (eager), 2 (captures) and 3-4 (replays)
+decode as the eager decode does, with three ``graph:replay`` spans a
+request and K1 called each request, and detections kept from one request
+survive the next. On the card: the same at D3 shape, b1 and b8 and in
+kmeans mode; detections kept survive the next request; a traced graphed
+request opens three ``graph:replay`` spans and no ``sync:*`` span, launches
+K1 once and the NMS kernel only inside its graph.
 """
 
+import collections
+import contextlib
 import os
 
 import numpy as np
@@ -28,10 +42,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark.spans import BLOCKS
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig
+from instance_segmentation_torch import serve
+from instance_segmentation_torch.kernels import affinity
+from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, forward_and_decode
 from instance_segmentation_torch.parallel import multihost, spatial
 from instance_segmentation_torch.parallel.mesh import Mesh, MeshSpec, batch_shard, make_mesh
 from instance_segmentation_torch.serve import Predictor, ServingModel
+from instance_segmentation_torch.utils import profiling
 from instance_segmentation_torch.utils.flops import OpCounter, total_flops
 
 H, W = 128, 256
@@ -184,6 +202,147 @@ def test_predictor_model_is_an_efficientseg_with_the_benchmarks_block_paths():
 
 
 # ---------------------------------------------------------------------------
+# The decode's graphs, on the CPU
+# ---------------------------------------------------------------------------
+
+KMEANS = DecodeConfig(kp_th=2000, group_mode="kmeans")
+
+
+def _decode_predictor(decode_cfg=DECODE, seed=0):
+    return Predictor(B0, decode_cfg, torch.Generator().manual_seed(seed), CPU,
+                     orig_hw=(2 * H, 2 * W), scale=2.0)
+
+
+@pytest.fixture(scope="module")
+def b0_heads():
+    """The five heads of B0 at 128x256 on seeded weights, and the predictor."""
+    pred = _decode_predictor()
+    with torch.inference_mode():
+        heads = pred.model(torch.as_tensor(_frames(seed=12)))
+    return pred, heads
+
+
+@pytest.mark.parametrize("cfg", [DECODE, KMEANS], ids=["affinity", "kmeans"])
+def test_decode_parts_compose_to_decode_output(b0_heads, cfg):
+    pred, heads = b0_heads
+    with torch.inference_mode():
+        want = decode.decode_output(heads, pred.anchors, *pred.orig_hw, pred.scale, cfg)
+        cand = decode.decode_candidates(heads, pred.anchors, cfg)
+        assign = decode.group_candidates(cand, cfg)
+        got = decode.assemble_candidates(cand, assign, (H, W), *pred.orig_hw, pred.scale, cfg)
+    assert _all_identical(got, want)
+    assert int(want.obj_valid.sum()) > 0
+
+
+@pytest.mark.parametrize("case, eager", [
+    ("cuda", False), ("cpu", True), ("spatial_mesh", True), ("one_rank_mesh", False),
+    ("dispatch_mode", True), ("grad", True)])
+def test_decode_graph_eager_rule(b0_heads, fake_cuda_frames, case, eager):
+    """``Predictor._decode`` runs eagerly where the forward does: the frames'
+    first request of a shape is marked seen only where graphs may follow."""
+    pred, heads = b0_heads
+    pred._decode_graphs.clear()
+    images = torch.zeros(1, H, W, 3, dtype=torch.uint8) if case == "cpu" else fake_cuda_frames
+    spatial_ranks = {"spatial_mesh": 2, "one_rank_mesh": 1}.get(case)
+    mesh = None if spatial_ranks is None else Mesh(1, spatial_ranks, 0, 0, None, None, CPU)
+    with torch.inference_mode(case != "grad"), spatial.sharded(mesh):
+        with OpCounter() if case == "dispatch_mode" else contextlib.nullcontext():
+            dets = pred._decode(images, heads)
+    with torch.inference_mode():
+        want = decode.decode_output(heads, pred.anchors, *pred.orig_hw, pred.scale, DECODE)
+    assert _all_identical(dets, want)
+    assert list(pred._decode_graphs.values()) == ([] if eager else [None, None])
+    pred._decode_graphs.clear()
+
+
+class _EagerGraph:
+    """``serve._Graph``'s contract, kept on the CPU: the capture copies its
+    inputs, the outputs it makes hold junk until a replay (a capture runs
+    nothing; an earlier graph's output that it passes through stays), and a
+    replay copies the inputs into the static ones and recomputes into the
+    same output tensors."""
+
+    captured = 0
+    made = []                   # every capture's outputs
+
+    def __init__(self, fn, inputs):
+        _EagerGraph.captured += 1
+        self.fn, self.inputs = fn, tuple(t.clone() for t in inputs)
+        self.outputs = fn(*self.inputs)
+        for out in self.outputs:
+            if not any(out is t for t in _EagerGraph.made):
+                out.fill_(7)
+        _EagerGraph.made += self.outputs
+
+    def replay(self, inputs):
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        for out, fresh in zip(self.outputs, self.fn(*self.inputs)):
+            if out is not fresh:
+                out.copy_(fresh)
+        return self.outputs
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """Predictors whose CPU requests take the graphed path, through
+    ``_EagerGraph``."""
+    monkeypatch.setattr(serve, "_Graph", _EagerGraph)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(ServingModel, "eager", lambda self, images: False)
+    _EagerGraph.captured = 0
+    _EagerGraph.made = []
+
+
+def _ranges(prof) -> collections.Counter:
+    return collections.Counter(e.name for e in profiling.trace_events(prof)
+                               if e.annotation and not e.device)
+
+
+@pytest.mark.parametrize("cfg", [DECODE, KMEANS], ids=["affinity", "kmeans"])
+def test_graphed_requests_decode_as_the_eager_decode(cpu_graphs, cfg, monkeypatch):
+    pred = _decode_predictor(cfg, seed=1)
+    frames = _frames(seed=13)
+    with torch.inference_mode():
+        want = forward_and_decode(_plain(pred), torch.as_tensor(frames), pred.anchors,
+                                  *pred.orig_hw, pred.scale, cfg)
+    assert int(want.obj_valid.sum()) > 0
+    calls = []
+    real = decode.affinity_assign
+    monkeypatch.setattr(decode, "affinity_assign", lambda *a: calls.append(1) or real(*a))
+    ranges = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            dets = pred.predict(frames)
+        ranges.append(_ranges(prof))
+        assert _all_identical(dets, want)
+    assert _EagerGraph.captured == 3 and len(calls) == 4       # K1 each request
+    assert ranges[0]["graph:capture"] == ranges[0]["graph:replay"] == 0
+    assert ranges[1]["graph:capture"] == ranges[1]["graph:replay"] == 3
+    for r in ranges[2:]:
+        assert r["graph:capture"] == 0 and r["graph:replay"] == 3
+        assert r["forward"] == r["decode"] == r["decode.group"] == 1
+    key = ((1, H, W, 3), torch.uint8, CPU)
+    assert list(pred._decode_graphs) == [(key, "candidates"), (key, "assemble")]
+    assert all(g is not None for g in pred._decode_graphs.values())
+
+
+def test_graphed_detections_kept_from_a_request_survive_the_next(cpu_graphs):
+    pred = _decode_predictor(seed=2)
+    a, b = _frames(seed=14), _frames(seed=15)
+    for _ in range(3):
+        pred.predict(a)
+    kept = pred.predict(a)
+    copy = [t.clone() for t in kept]
+    other = pred.predict(b)
+    assert _all_identical(kept, copy)
+    assert not _all_identical(other, kept)
+    first, last = pred._decode_graphs.values()
+    graph_memory = {t.data_ptr() for t in (*first.outputs, *last.outputs)}
+    assert not graph_memory & {t.data_ptr() for t in kept}
+
+
+# ---------------------------------------------------------------------------
 # The card
 # ---------------------------------------------------------------------------
 
@@ -269,6 +428,7 @@ def test_flop_count_after_capture_equals_the_eager_one(cuda_device):
     pred.predict(frames)
     pred.predict(frames)
     assert all(g is not None for g in pred.model._graphs.values()) and pred.model._graphs
+    assert all(g is not None for g in pred._decode_graphs.values()) and pred._decode_graphs
     _, after_ops = flops.count(lambda: pred.predict(frames))
     assert flops.total_flops(eager_ops) > 0
     assert flops.total_flops(after_ops) == flops.total_flops(eager_ops)
@@ -297,8 +457,63 @@ def test_a_traced_replay_shows_its_span_and_kernels(cuda_device):
     request()                                   # the capture
     replay = trace.traced_segment(request, cuda_device)
     assert eager["span_count"].get("graph:replay", 0) == 0
-    assert replay["span_count"]["graph:replay"] == 1 and "graph:capture" not in replay["span_count"]
+    # the forward's replay and the decode's two
+    assert replay["span_count"]["graph:replay"] == 3 and "graph:capture" not in replay["span_count"]
     # the graph's kernels are launched inside "forward": the same kernels, plus
     # the copy of the frames into the graph and the five heads' clones
     assert 0 <= replay["span_kernels"]["forward"] - eager["span_kernels"]["forward"] <= 10
     assert replay["span_host_s"]["forward"] < eager["span_host_s"]["forward"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, group_mode", [(1, "affinity"), (8, "affinity"), (1, "kmeans")])
+def test_decode_graphs_agree_with_the_eager_decode_at_d3(cuda_device, batch, group_mode):
+    cfg, hw = CARD_CASES["d3-bf16"]
+    pred = Predictor(cfg, DecodeConfig(group_mode=group_mode), torch.Generator().manual_seed(0),
+                     cuda_device, orig_hw=(2 * hw[0], 2 * hw[1]), scale=2.0)
+    frames = _frames(batch, hw=hw, seed=16)
+    dets = [pred.predict(frames) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert len(pred._decode_graphs) == 2
+    assert all(g is not None for g in pred._decode_graphs.values())
+    assert int(dets[0].obj_valid.sum()) > 0
+    for call in (1, 2, 3):
+        assert _all_identical(dets[call], dets[0]), f"call {call + 1}'s detections"
+
+
+@pytest.mark.cuda
+def test_graphed_detections_survive_the_next_request_on_the_card(cuda_device):
+    pred = _predictor(device=cuda_device)
+    a, b = _frames(seed=17), _frames(seed=18)
+    for _ in range(3):
+        pred.predict(a)
+    kept = pred.predict(a)
+    copy = [t.clone() for t in kept]
+    other = pred.predict(b)
+    torch.cuda.synchronize()
+    assert _all_identical(kept, copy)
+    assert not _all_identical(other, kept)
+
+
+@pytest.mark.cuda
+def test_a_traced_graphed_request_holds_no_host_wait_and_launches_k1(cuda_device):
+    from benchmark import trace
+    from instance_segmentation_torch.kernels import nms
+    pred = _predictor(CARD_CASES["d3-bf16"][0], cuda_device, CARD_CASES["d3-bf16"][1])
+    frames = torch.as_tensor(_frames(hw=CARD_CASES["d3-bf16"][1], seed=19)).pin_memory()
+
+    def request():
+        pred.predict(frames)
+        return 1
+    eager = trace.traced_segment(request, cuda_device)
+    request()                                   # the captures
+    k1, kernel = affinity.launches, nms.launches
+    replay = trace.traced_segment(request, cuda_device)
+    assert affinity.launches == k1 + 1 and nms.launches == kernel   # NMS inside the graph
+    count = replay["span_count"]
+    assert count["graph:replay"] == 3 and count["decode"] == count["decode.group"] == 1
+    assert not [name for name in count if name.startswith("sync:")]
+    assert not [name for name in eager["span_count"] if name.startswith("sync:")]
+    assert "decode.boxes" not in count and "decode.assemble" not in count
+    # the decode's kernels: the same, plus the copies into and out of its graphs
+    assert 0 <= replay["span_kernels"]["decode"] - eager["span_kernels"]["decode"] <= 24
