@@ -7,7 +7,7 @@
 // compiler (kernels/build.py) on any machine. The numpy form of the same
 // function is utils/png.py:unfilter_numpy; tests/test_torch_png.py holds
 // the two equal on rows of all five filter types at 1-4 bytes a pixel, and
-// chip_smoke.py does on its synthetic frames as well.
+// tests/test_torch_on_card.py does with this file built on the card's host.
 //
 // data:   height rows of one filter-type byte and rowbytes filtered bytes
 // out:    height rows of rowbytes bytes

@@ -8,8 +8,8 @@
 // the same function takes ~170 ms a 512x1024x3 frame. Built by the host C
 // compiler (kernels/build.py) on any machine. Its numpy form is
 // utils/image.py:warp_affine_linear_numpy; tests/test_torch_augment.py
-// holds both to cv2.warpAffine bit for bit, and chip_smoke.py holds the
-// two equal on the card's host.
+// holds both to cv2.warpAffine bit for bit, and tests/test_torch_on_card.py
+// holds the two equal with this file built on the card's host.
 //
 // m:       the inverse map (destination -> source), float32 [6]
 // border:  the border value of each of the c channels

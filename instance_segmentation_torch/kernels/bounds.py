@@ -5,8 +5,8 @@ A kernel's least time on a card is the larger of the bytes it must move
 rate and the operations it must do on these inputs over the card's rate for
 their type. Each function below counts a kernel's bytes and operations from
 the arguments its wrapper takes, counting what these inputs need where the
-work depends on the data. ``chip_smoke.py`` and the roofline tool
-(``tools/roofline.py``) read their bounds from here.
+work depends on the data. The roofline tool (``tools/roofline.py``) reads
+its bounds from here; ``tests/test_torch_roofline.py`` holds them.
 
 The peaks are NVIDIA's datasheet figures for one ``NVIDIA H100 80GB HBM3``
 (H100 SXM5, 700 W): 3.35 TB/s of HBM3; dense 989 TFLOP/s in bf16 and fp16

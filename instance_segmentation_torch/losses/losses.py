@@ -19,11 +19,12 @@ package takes (``compose_loss`` there):
 
 The port follows the reference's route so that a full-resolution step does
 on the card the work the reference's full-resolution step does; whether K2
-should take over there on this card is a measurement (``chip_smoke.py``),
-not a choice made here. Both routes feed kernels K3/K4 (the AE focal and
-pull terms). The tangent loss reads the summed-normal field of kernel K5 at
-every size (the reference's full-resolution step scatters it with XLA
-instead: the same function up to summation order).
+should take over there on this card is a measurement, not a choice made
+here (``tests/test_torch_minr2.py`` holds both routes' maps equal there).
+Both routes feed kernels K3/K4 (the AE focal and pull terms). The tangent
+loss reads the summed-normal field of kernel K5 at every size (the
+reference's full-resolution step scatters it with XLA instead: the same
+function up to summation order).
 
 With ``LossConfig(ae_window=(h, w))`` the AE loss is the reference's
 approximate windowed form (``ae_loss_windowed``): each instance's focal term

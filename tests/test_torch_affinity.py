@@ -16,9 +16,10 @@ import torch
 
 from instance_segmentation_torch.kernels import affinity, build
 
-import chip_smoke
+import torch_cases
+from torch_cases import cuda_device  # noqa: F401 (a fixture)
 
-EDGE_CASES = chip_smoke.affinity_edge_cases()
+EDGE_CASES = torch_cases.affinity_edge_cases()
 EDGE_IDS = [name for name, _ in EDGE_CASES]
 
 torch.set_num_threads(2)
@@ -116,12 +117,37 @@ def test_plain_matches_xla_grouping_on_edge_cases(case):
 
 
 def test_plain_matches_xla_grouping_in_decode_order():
-    arrays = chip_smoke.affinity_inputs(2, 3000, 96, seed=9, decode_order=True)
+    arrays = torch_cases.affinity_inputs(2, 3000, 96, seed=9, decode_order=True)
     flat = arrays[0][..., 0] * 1024 + arrays[0][..., 1]
     assert (np.diff(flat, axis=-1) > 0).all()
     got, want = _plain(arrays), _xla(arrays)
     _assert_same_grouping(got, want)
     np.testing.assert_array_equal(got[0][want[1] == 0], 0)
+
+
+def test_against_cpu_twin_counts_what_the_card_tests_refuse():
+    """``torch_cases.against_cpu_twin`` (the card tests' comparison) finds
+    nothing wrong in the twin's own answer, and counts as bad an assignment
+    moved from a clear winner (every other score equal to it or under half
+    of it) to a center scoring 0, and a best off by 1e-5 as not within rtol
+    1e-6."""
+    inputs = [torch.from_numpy(x) for x in torch_cases.affinity_inputs(2, 3000, 96, seed=13)]
+    a, b = affinity.affinity_assign_plain(*inputs)
+    cmp = torch_cases.against_cpu_twin(a, b, inputs)
+    assert cmp["bad"] == 0 and cmp["best_ok"] and cmp["mismatch"] == 0
+    assert cmp["exact_ties"] > 0 and cmp["in_no_box"] > 0
+    scored = affinity.affinity_scores_plain(*inputs).flatten(0, 1)
+    top = scored.amax(-1, keepdim=True)
+    clear = ((top[:, 0] > 0) & ((scored == top) | (scored < 0.5 * top)).all(-1)
+             & (scored == 0).any(-1))
+    clear = int(clear.nonzero()[0])
+    moved = a.clone().flatten()
+    moved[clear] = int((scored[clear] == 0).nonzero()[0])
+    cmp = torch_cases.against_cpu_twin(moved.view_as(a), b, inputs)
+    assert cmp["bad"] == 1 and cmp["best_ok"]
+    off = b.clone().flatten()
+    off[clear] *= 1 + 1e-5
+    assert not torch_cases.against_cpu_twin(a, off.view_as(b), inputs)["best_ok"]
 
 
 def _packed_key_argmax(scored):
@@ -190,7 +216,7 @@ def test_kernel_model_matches_xla_grouping(case):
     if case < len(EDGE_CASES):
         arrays = EDGE_CASES[case][1]
     else:
-        arrays = chip_smoke.affinity_inputs(2, 2000, 96, seed=10,
+        arrays = torch_cases.affinity_inputs(2, 2000, 96, seed=10,
                                             decode_order=case > len(EDGE_CASES))
     with np.errstate(all="ignore"):
         _assert_same_with_nan(_kernel_model(*arrays), _xla(arrays))
@@ -299,16 +325,8 @@ def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
     assert "-Xptxas" in build.NVCC_FLAGS
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    return torch.device("cuda")
-
-
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
-    torch.backends.cuda.matmul.allow_tf32 = False
     arrays = [torch.from_numpy(x).to(cuda_device) for x in _inputs(4, 5000, 96, seed=5)]
     before = affinity.launches
     a, b = affinity.affinity_assign(*arrays)
@@ -345,8 +363,22 @@ def test_kernel_matches_cpu_twin_on_edge_cases_on_card(cuda_device, case):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_in_decode_order_on_card(cuda_device):
-    arrays = chip_smoke.affinity_inputs(8, 20000, 96, seed=12, decode_order=True)
+    arrays = torch_cases.affinity_inputs(8, 20000, 96, seed=12, decode_order=True)
     inputs = [torch.from_numpy(x).to(cuda_device) for x in arrays]
     a, b = affinity.affinity_assign(*inputs)
-    cmp = chip_smoke.against_cpu_twin(a, b, inputs)
+    cmp = torch_cases.against_cpu_twin(a, b, inputs)
     assert cmp["bad"] == 0 and cmp["best_ok"], cmp
+
+
+@pytest.mark.cuda
+def test_kernel_matches_cpu_twin_in_random_order_at_the_decode_shape_on_card(cuda_device):
+    """B=8, K=20000, D=96, keypoints in random order (no culling by rows
+    helps): assign equal outside near ties, best to rtol 1e-6."""
+    arrays = torch_cases.affinity_inputs(*torch_cases.AFFINITY_SHAPE)
+    inputs = [torch.from_numpy(x).to(cuda_device) for x in arrays]
+    before = affinity.launches
+    a, b = affinity.affinity_assign(*inputs)
+    cmp = torch_cases.against_cpu_twin(a, b, inputs)
+    assert affinity.launches == before + 1
+    assert cmp["bad"] == 0 and cmp["best_ok"], cmp
+    assert cmp["in_no_box"] > 0 and cmp["exact_ties"] > 0, cmp

@@ -17,7 +17,7 @@ OpenCV:
   bit (float32 results compared as bits), on the ops' inputs and on
   arbitrary floats, at widths that do and do not fill OpenCV's vector steps;
 * ``shuffle_trans_seq``, flat and nested, and ``CommonTransforms("train")``
-  on the default config and on chip_smoke.py's every-op config, against the
+  on the default config and on a config of every train op, against the
   JAX pipeline over 20 frames.
 No tolerance is needed anywhere: everything is compared bit for bit.
 """
@@ -62,7 +62,7 @@ OP_CASES = {
                                   "grid": [3, 2]}),
 }
 
-# chip_smoke.py phase 14(b)'s config, cut to 128x256 frames
+# every train op: shuffled photometric ops, then the geometric ones (128x256 frames)
 EVERY_OP = {
     "train_trans": {
         "shuffle_trans_seq": ["random_hflip", "random_brightness", "random_contrast",

@@ -1,6 +1,7 @@
 """The port's config layer against the JAX package's: the YAML-subset reader
 (``configs/yaml_subset.py``) equals ``yaml.safe_load`` on every ``.yaml`` in
-the repository, on the configs ``tests/test_cli.py`` dumps and on PyYAML's
+the repository, on the configs ``tests/test_cli.py`` dumps (and the same
+configs as the card tests write them without PyYAML) and on PyYAML's
 float rule (``1e-4`` is a string, ``1.0e-4`` a float), and raises outside its
 subset; the port's default files parse to what the originals parse to; and
 ``Config``, ``Configer``, ``StaticShapes``, ``static_shapes_from`` and
@@ -17,6 +18,8 @@ import yaml
 from instance_segmentation_tpu import configs as jc
 from instance_segmentation_torch import configs as tc
 from instance_segmentation_torch.configs import yaml_subset
+
+from torch_cases import yaml_text
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_YAML = sorted(
@@ -85,6 +88,7 @@ def _same(a, b):
 def _texts():
     out = [(p, open(os.path.join(REPO, p)).read()) for p in REPO_YAML]
     out += [(f"test_cli {k}", yaml.safe_dump(v)) for k, v in CLI_CONFIGS.items()]
+    out += [(f"yaml_text {k}", yaml_text(v)) for k, v in CLI_CONFIGS.items()]
     out += [(f"subset {i}", d) for i, d in enumerate(SUBSET_DOCS)]
     return out
 

@@ -20,7 +20,7 @@ from instance_segmentation_torch.utils.jpeg import write_jpeg
 from instance_segmentation_torch.utils.png import read_png, write_png
 from instance_segmentation_torch.utils.visualize import draw_rectangle, visualize_keypoints
 
-import chip_smoke
+import torch_cases
 
 torch.set_num_threads(2)
 
@@ -54,9 +54,9 @@ def test_rectangle_equals_cv2():
 
 @pytest.mark.parametrize("ext", ["jpg", "png"])
 def test_dump_detections_equals_jax(ext, tmp_path):
-    outputs, anchors = chip_smoke.synthetic_scene(128, 192)
+    outputs, anchors = torch_cases.synthetic_scene(128, 192)
     dets = td.decode_output(tuple(map(torch.from_numpy, outputs)), torch.tensor(anchors),
-                            256, 384, 2.0, chip_smoke.SCENE_DECODE)
+                            256, 384, 2.0, torch_cases.SCENE_DECODE)
     assert int(dets.obj_valid.sum()) == 2
     frame = np.random.default_rng(2).integers(0, 256, (256, 384, 3), np.uint8)
     path = str(tmp_path / f"frame_0001.{ext}")

@@ -18,7 +18,7 @@ from instance_segmentation_torch.models.anchors import generate_anchors
 from instance_segmentation_torch.ops import decode as td
 from instance_segmentation_torch.ops.geometry import point_in_polygon
 
-import chip_smoke
+import torch_cases
 
 torch.set_num_threads(2)
 FTOL = dict(rtol=1e-5, atol=1e-5)
@@ -117,7 +117,7 @@ def test_exact_topk_indices_equal_reference(case):
 def test_select_peaks_tie_band_scene_equals_reference():
     """The synthetic scene: ~320 outline pixels at 8.0 and a background of
     -8.0 ties inside the top-2000 band, taken in index order."""
-    (kp, *_), _ = chip_smoke.synthetic_scene()
+    (kp, *_), _ = torch_cases.synthetic_scene()
     hm = kp[..., 0]
     want_i, want_ok = jax.jit(lambda h: jd.select_peaks_batch(h, 2000))(hm)
     got_i, got_ok = td.select_peaks_batch(*_t(hm), 2000)
@@ -275,7 +275,7 @@ def test_internal_point_degenerate_returns_default():
 
 def test_synthetic_scene_is_the_reference_scene():
     from test_decode import _synthetic_scene
-    (kp, ae, tan, _, _), anchors = chip_smoke.synthetic_scene(128, 192)
+    (kp, ae, tan, _, _), anchors = torch_cases.synthetic_scene(128, 192)
     want_kp, want_ae, want_tan, _ = _synthetic_scene(128, 192)
     np.testing.assert_array_equal(kp, want_kp)
     np.testing.assert_array_equal(ae, want_ae)
@@ -285,12 +285,12 @@ def test_synthetic_scene_is_the_reference_scene():
 
 @pytest.mark.parametrize("margin", [0.0, 0.5], ids=["edges_on_pixels", "half_pixel_margin"])
 def test_decode_output_synthetic_scene_equals_reference(margin):
-    outputs, anchors = chip_smoke.synthetic_scene(128, 192, margin=margin)
+    outputs, anchors = torch_cases.synthetic_scene(128, 192, margin=margin)
     cfg = jd.DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512)
     want = jax.jit(lambda o, a: jd.decode_output(o, a, 256, 384, 2.0, cfg))(
         tuple(map(jnp.asarray, outputs)), jnp.asarray(anchors))
     got = td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
-                           chip_smoke.SCENE_DECODE)
+                           torch_cases.SCENE_DECODE)
     assert_detections_match(got, want)
     assert int(got.obj_valid.sum()) == 2
     assert set(got.classes[got.obj_valid].tolist()) == {0, 1}
@@ -301,7 +301,7 @@ def test_unported_modes_raise():
     """A grouping mode that is neither "affinity" nor "kmeans" raises
     (kmeans, once listed here, is ported: tests/test_torch_kmeans.py; so is
     ``exact_topk=False``: the value-ordered top-k tests below)."""
-    outputs, anchors = chip_smoke.synthetic_scene()
+    outputs, anchors = torch_cases.synthetic_scene()
     with pytest.raises(ValueError, match="group_mode"):
         td.decode_output(_t(*outputs), torch.tensor(anchors), 256, 384, 2.0,
                          td.DecodeConfig(kp_th=2000, group_mode="spectral"))
@@ -377,7 +377,7 @@ def test_value_topk_ties_take_the_lower_index():
 def test_decode_output_value_topk_synthetic_scene_equals_reference():
     """The synthetic scene (a -8.0 background tied across the k-th place) with
     ``exact_topk=False``: the whole decode against JAX's."""
-    outputs, anchors = chip_smoke.synthetic_scene(128, 192, margin=0.5)
+    outputs, anchors = torch_cases.synthetic_scene(128, 192, margin=0.5)
     cfg = jd.DecodeConfig(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512, exact_topk=False)
     want = jax.jit(lambda o, a: jd.decode_output(o, a, 256, 384, 2.0, cfg))(
         tuple(map(jnp.asarray, outputs)), jnp.asarray(anchors))

@@ -198,8 +198,9 @@ def test_unsupported_kinds_raise_naming_the_file(tmp_path):
 
 
 def test_committed_digests_equal_opencv():
-    """The digests chip_smoke.py holds the codec to on the card's host are
-    OpenCV's bytes and pixels for these frames, and the port meets them."""
+    """The digests ``tests/test_torch_on_card.py`` holds the codec to on the
+    card's host are OpenCV's bytes and pixels for these frames, and the port
+    meets them."""
     with open(jpeg_digests.PATH) as f:
         assert json.load(f) == jpeg_digests.opencv_digests()
     rows = jpeg_digests.check()

@@ -30,7 +30,7 @@ from instance_segmentation_torch.ops import decode as td
 from instance_segmentation_torch.ops import kmeans as tk
 from instance_segmentation_torch.weights import init_random
 
-import chip_smoke
+import torch_cases
 from test_torch_decode import assert_detections_match
 
 torch.set_num_threads(2)
@@ -126,7 +126,7 @@ def test_kmeans_decode_equals_jax(source):
         cfg = dict(kp_th=2000)
         orig = (256, 512)
     else:
-        outputs, anchors = chip_smoke.synthetic_scene(128, 192)
+        outputs, anchors = torch_cases.synthetic_scene(128, 192)
         cfg = dict(kp_th=2000, pre_nms=64, max_dets=8, max_poly=512)
         orig = (256, 384)
     jcfg = jd.DecodeConfig(group_mode="kmeans", **cfg)

@@ -12,7 +12,9 @@ package, on one synthetic Cityscapes tree (the JAX tool's, 128x256):
   failing dataset item raises ``RuntimeError`` in the parent, and so does a
   worker that dies, also one cut off in the middle of sending a batch, with
   no fallback to serial loading; a program that ends
-  with a pool still open leaves no process behind it (fork server included);
+  with a pool still open leaves no process behind it (fork server included),
+  and one that calls ``stop_fork_server`` with a pool open has no process
+  left below it but multiprocessing's resource tracker;
 * ``ISEG_DATA_WORKERS`` sets the pool's size when ``num_workers`` is None;
 * the preprocess tool's outputs (``.npz`` arrays, ``_img.npy``, manifest)
   and the packed dataset's items and batches equal the JAX package's.
@@ -230,6 +232,61 @@ def test_no_process_outlives_a_program_that_leaves_a_pool_open(tree, tmp_path):
     started = [int(pid) for pid in out.read_text().split()]
     assert len(started) == 3                 # the fork server and two workers ran
     assert _session_processes(proc.pid) == []
+
+
+def test_stop_fork_server_leaves_no_process_but_the_resource_tracker(tree, tmp_path):
+    """In a process of its own (no other test's pool can leak into it): a
+    pool of two workers started and a batch read, then ``stop_fork_server``
+    leaves no live descendant (read from ``/proc``) but multiprocessing's
+    resource tracker, which ends with the process."""
+    script = tmp_path / "stop_server.py"
+    script.write_text(textwrap.dedent(f"""
+        import multiprocessing.resource_tracker
+        import os
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from instance_segmentation_torch import data as tdata
+        from instance_segmentation_torch.configs import Configer
+        from instance_segmentation_torch.data.registry import stop_fork_server
+        from instance_segmentation_torch.transforms import CommonTransforms
+
+        def descendants():
+            parent = {{}}
+            for entry in filter(str.isdigit, os.listdir("/proc")):
+                try:
+                    with open(f"/proc/{{entry}}/stat") as f:
+                        fields = f.read().rsplit(")", 1)[1].split()
+                except (OSError, IndexError):
+                    continue
+                if fields[0] != "Z":
+                    parent[int(entry)] = int(fields[1])
+            below, frontier = [], [os.getpid()]
+            while frontier:
+                frontier = [pid for pid, pp in parent.items() if pp in frontier]
+                below += frontier
+            return below
+
+        if __name__ == "__main__":
+            val = CommonTransforms(Configer({VAL!r}), "val")
+            loader = tdata.get_dataloader(1, "cityscapes", {tree!r}, "val", transforms=val,
+                                          max_instances=8, max_verts=32, num_workers=2)
+            batches = iter(loader)
+            next(batches)
+            started = descendants()
+            stop_fork_server()
+            tracker = multiprocessing.resource_tracker._resource_tracker._pid
+            print(len(started), *[pid for pid in descendants() if pid != tracker])
+    """))
+    # the output goes to a file: a server left running would hold a pipe open
+    out = tmp_path / "left.txt"
+    with open(out, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(script)], stdout=f,
+                                start_new_session=True)
+        proc.wait(timeout=120)
+    assert proc.returncode == 0
+    started, *left = (int(n) for n in out.read_text().split())
+    assert started >= 3                      # the fork server and two workers ran
+    assert left == []
 
 
 def test_workers_from_the_environment(tree, monkeypatch):

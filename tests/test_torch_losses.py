@@ -5,7 +5,8 @@ Pallas kernels run in interpret mode (``INTERPRET = True``, as the JAX
 package's own tests run them) with ``LossConfig(ae_impl="pallas")``; K2 and
 K5 are also held against the XLA oracles. On the CPU the port's wrappers run
 the kernels' plain twins; the tests marked ``cuda`` hold each kernel against
-its twin on a card:
+its twin on a card, at these shapes and at the train cell's and the full
+resolution's (K5, K3 and K4 on the route each takes there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_losses.py
 """
@@ -18,6 +19,11 @@ from instance_segmentation_torch.kernels import ae_terms as tae
 from instance_segmentation_torch.kernels import rasterize as trz
 from instance_segmentation_torch.losses import losses as tl
 import instance_segmentation_torch.ops.targets as tt
+from instance_segmentation_torch.kernels import minr2 as tm2
+from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
+
+from torch_cases import FULLRES_SHAPE, TRAIN_SHAPE
+from torch_cases import cuda_device  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 B, H, W, M, P = 2, 128, 512, 8, 64
@@ -535,13 +541,6 @@ def test_kernel_sources_name_what_they_replace():
 
 # ---- on a card -----------------------------------------------------------------------
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU form")
-    return torch.device("cuda")
-
-
 def _card_points(dev, seed=0):
     """Octagon samples plus one border-clipped instance and an empty image,
     from the port's own target generation."""
@@ -587,7 +586,6 @@ def _hold_ae_terms_to_twin_on_card(cuda_device, not_valid=()):
     autograd, on the card points with the (image, instance) pairs
     ``not_valid`` keeping their samples but losing their valid flag. Returns
     K3's terms."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     t = _card_points(cuda_device)
     cnt, r2, _ = trz.rasterize_cnt_r2(t.points, t.pt_valid, H, W)
     xym = tl.coordinate_grid(H, W, cuda_device)
@@ -643,3 +641,78 @@ def test_ae_terms_sum_the_pull_of_instances_without_a_valid_flag_on_card(cuda_de
     for b, m in NOT_VALID:
         assert [float(x[b, m].detach()) for x in got[:3]] == [0.0, 0.0, 0.0]
         assert float(got[3][b, m].detach()) > 0.0
+
+
+def _bits(x):
+    return x.view(torch.int32).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["train cell", "full resolution"])
+def test_loss_kernels_match_twins_at_the_cells_shapes_on_card(cuda_device, where):
+    """B=8, M=96, P=1024, 512x1024 (the labels with a border-clipped
+    instance and an image without labels; (cnt, r2) from K2, bitwise equal to
+    its twin) and B=1, 1024x2048 ((cnt, r2) from the count map and K6): K5
+    to rtol 1e-5 of the twin on the card and bitwise equal to the twin on
+    the CPU and across two launches; K3 to rtol 1e-5 and bitwise equal across
+    two launches; K4 within 1e-4 of max|g| of the twin's autograd on the
+    first and last images, and equal to it through the autograd.Function."""
+    dev = cuda_device
+    if where == "train cell":
+        b, m, p, h, w = TRAIN_SHAPE
+        labels = bench_train_batch(b, m, h, w, edge_cases=True)[1]
+    else:
+        b, m, p, h, w = FULLRES_SHAPE
+        labels = fullres_batch(b, m, h, w)[1]
+    t = tt.generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p,
+                            dense_kp=False)
+    if where == "train cell":
+        cnt, r2, union = trz.rasterize_cnt_r2(t.points, t.pt_valid, h, w)
+        for g, x in zip((cnt, r2, union), trz.rasterize_cnt_r2_plain(t.points, t.pt_valid, h, w)):
+            assert g.dtype == x.dtype and g.shape == x.shape
+            assert torch.equal(g.view(torch.uint8), x.view(torch.uint8))
+    else:
+        cnt = tl.ae_sample_count(t, h, w)
+        r2 = tm2.minr2_from_cnt(cnt, t.pt_valid.any(dim=2))
+
+    # K5
+    nk = trz.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w)
+    again = trz.rasterize_nmap(t.points, t.pt_valid, t.normals, h, w)
+    twin = trz.rasterize_nmap_plain(t.points, t.pt_valid, t.normals, h, w)
+    cpu = trz.rasterize_nmap_plain(t.points.cpu(), t.pt_valid.cpu(), t.normals.cpu(), h, w)
+    for a, c, c_cpu, a2 in zip(nk, twin, cpu, again):
+        assert torch.allclose(a, c, rtol=1e-5, atol=1e-5)
+        assert torch.equal(_bits(a), _bits(c_cpu)) and torch.equal(_bits(a), _bits(a2))
+
+    # K3
+    xym = tl.coordinate_grid(h, w, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    planes = torch.randn((4, b, h, w), generator=gen, device=dev)
+    fields = [(torch.tanh(planes[0]) + xym[..., 0]).contiguous(),
+              (torch.tanh(planes[1]) + xym[..., 1]).contiguous(),
+              torch.exp(planes[2]), torch.exp(planes[3])]
+    tab = tl.ae_table(t, xym, h, w)
+    rest = (r2, cnt, tab, tae.neg4_lut(tl._NEG4_TABLE, dev),
+            tae.tile_presence(t.points, t.pt_valid, h, w))
+    k3 = tae.ae_terms_fwd(*fields, *rest)
+    again = tae.ae_terms_fwd(*fields, *rest)
+    with torch.no_grad():
+        p3 = tae.ae_terms_plain(*fields, *rest)
+    for a, c, a2 in zip(k3, p3, again):
+        assert torch.allclose(a, c, rtol=1e-5, atol=0.0)
+        assert torch.equal(_bits(a), _bits(a2))
+
+    # K4 on the first and last images against the twin's autograd there
+    sub = torch.tensor(sorted({0, b - 1}), device=dev)
+    fields2 = [f[sub].contiguous().requires_grad_() for f in fields]
+    rest2 = (r2[sub].contiguous(), cnt.view(torch.int16)[sub].view(torch.uint16),
+             tab[sub].contiguous(), rest[3], rest[4][sub].contiguous())
+    wts = torch.randn((3, b, m), generator=gen, device=dev)[:, sub]
+    k4 = tae.ae_terms_bwd(*(f.detach() for f in fields2), *rest2, *wts)
+    pos, neg, _, pull = tae.ae_terms_plain(*fields2, *rest2)
+    p4 = torch.autograd.grad((wts[0] * pos + wts[1] * neg + wts[2] * pull).sum(), fields2)
+    pos, neg, _, pull = tae.ae_terms(*fields2, *rest2)
+    f4 = torch.autograd.grad((wts[0] * pos + wts[1] * neg + wts[2] * pull).sum(), fields2)
+    for a, c, f in zip(k4, p4, f4):
+        assert float((a - c).abs().max()) <= GRAD_TOL * float(c.abs().max())
+        assert torch.equal(a, f)

@@ -2,8 +2,10 @@
 package's ``minr2_pallas.minr2_from_cnt`` (interpret mode) and its XLA
 oracle ``_shift_min_r2(cnt > 0)``, bit for bit: clustered samples, padding
 slots, border pixels, an all-empty image and a slab with counts but no valid
-sample. On the CPU the wrapper runs its plain twin; the test marked ``cuda``
-holds the kernel against the twin on a card:
+sample. On the CPU the wrapper runs its plain twin; the tests marked
+``cuda`` hold the kernel against the twin on a card, on these cases, on edge
+shapes and at the train cell's and the full resolution's shapes, and the
+count route's (cnt, r2) at full resolution against K2's:
 
     python -m pytest --noconftest -m cuda tests/test_torch_minr2.py
 """
@@ -14,6 +16,12 @@ import torch
 
 from instance_segmentation_torch.kernels import minr2 as tm2
 from instance_segmentation_torch.kernels import rasterize as trz
+from instance_segmentation_torch.losses import losses as tl
+from instance_segmentation_torch.ops.targets import generate_targets
+from instance_segmentation_torch.training.synthetic import bench_train_batch, fullres_batch
+
+from torch_cases import FULLRES_SHAPE, TRAIN_SHAPE
+from torch_cases import cuda_device  # noqa: F401 (a fixture)
 
 
 def cnt_fixture(b=2, m=6, h=64, w=128, n_real=3, seed=0):
@@ -109,10 +117,8 @@ def test_minr2_wrapper_checks_and_counts_no_cpu_launch():
 
 
 @pytest.mark.cuda
-def test_minr2_kernel_matches_twin_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    dev = torch.device("cuda")
+def test_minr2_kernel_matches_twin_on_card(cuda_device):
+    dev = cuda_device
     for case, make in CASES.items():
         cnt, has = make(h=70, w=260) if case == "clustered" else make()
         cnt_t = torch.from_numpy(cnt.astype(np.int16)).to(dev).view(torch.uint16)
@@ -144,12 +150,10 @@ def _edge_counts(b, m, h, w, seed):
     (1, 4, 2 * tm2.BAND_H + 2, tm2.BAND_W + 72),     # W % 8 == 0, not of BAND_W
     (3, 2, tm2.BAND_H - 1, 12),                       # one band, narrower than one
 ])
-def test_minr2_kernel_matches_twin_on_edge_shapes(b, m, h, w):
+def test_minr2_kernel_matches_twin_on_edge_shapes(cuda_device, b, m, h, w):
     """Bands and count vectors that end raggedly, samples on the borders, a
     slab with counts but has == 0, and the same batch as padding only."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    dev = torch.device("cuda")
+    dev = cuda_device
     cnt, has = _edge_counts(b, m, h, w, seed=h + w)
     cnt_t = torch.from_numpy(cnt).to(dev).view(torch.uint16)
     for flags in (torch.from_numpy(has).to(dev), torch.zeros((b, m), dtype=torch.bool,
@@ -159,3 +163,42 @@ def test_minr2_kernel_matches_twin_on_edge_shapes(b, m, h, w):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     assert (got == 200).all()
+
+
+def _cell_targets(dev, where):
+    """The targets of the train cell's labels (B=8, M=96, P=1024, 512x1024,
+    with a border-clipped instance and an image without labels) or of the
+    full-resolution batch (B=1, 1024x2048), and (H, W)."""
+    if where == "train cell":
+        b, m, p, h, w = TRAIN_SHAPE
+        labels = bench_train_batch(b, m, h, w, edge_cases=True)[1]
+    else:
+        b, m, p, h, w = FULLRES_SHAPE
+        labels = fullres_batch(b, m, h, w)[1]
+    t = generate_targets(*(torch.from_numpy(a).to(dev) for a in labels), h, w, max_points=p,
+                         dense_kp=False)
+    return t, (h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["train cell", "full resolution"])
+def test_minr2_kernel_matches_twin_at_the_cells_shapes_on_card(cuda_device, where):
+    """Bitwise on the count map of the cell's targets; at full resolution
+    also with a live slab marked as having no sample (all 200 there), and
+    the count route's (cnt, r2) bitwise equal to K2's."""
+    t, (h, w) = _cell_targets(cuda_device, where)
+    cnt = tl.ae_sample_count(t, h, w)
+    has = t.pt_valid.any(dim=2)
+    got = tm2.minr2_from_cnt(cnt, has)
+    assert got.dtype == torch.uint8 and torch.equal(got, tm2.minr2_from_cnt_plain(cnt, has))
+    if where == "full resolution":
+        slot = int(has[0].nonzero()[0])
+        assert bool(cnt.view(torch.int16)[0, slot].any())
+        has_off = has.clone()
+        has_off[0, slot] = False
+        off = tm2.minr2_from_cnt(cnt, has_off)
+        assert torch.equal(off, tm2.minr2_from_cnt_plain(cnt, has_off))
+        assert bool((off[0, slot] == 200).all())
+        k2 = trz.rasterize_cnt_r2(t.points, t.pt_valid, h, w)
+        assert torch.equal(k2[0].view(torch.int16), cnt.view(torch.int16))
+        assert torch.equal(k2[1], got)

@@ -3,16 +3,17 @@ offset of ``ops/decode.decode_boxes``.
 
 On the CPU: the kernel's twin ``nms_keep_plain`` (the fixpoint ``leader_nms``
 runs eagerly there) against ``greedy_nms`` and the JAX decode's fixpoint and
-greedy oracle, on rank-sorted sets at K = 1, 7 and 512, B = 1 and 3, with
+greedy oracle, on rank-sorted sets at K = 1, 7 and 512, B = 1, 3 and 8, with
 IoUs exactly at the threshold, duplicate boxes, all-invalid and all-valid
-rows; a numpy model of the kernel's packing and chunked walk against
+rows, and 8 classes set apart as the decode's class offset does; a numpy model of the kernel's packing and chunked walk against
 ``greedy_nms`` (and blind to what lies on and below the diagonal); the input
 checks, CPU tensors refused; the class offset filled on the device against the mask copied from the host,
 bit for bit. JAX is imported inside the tests that use it.
 
 On a CUDA card only (marked ``cuda``): the kernel against the twin and
 ``greedy_nms`` on 1,040 random sets (K up to 700, B up to 8, threshold
-ties, shared-memory and scratch layouts, an unaligned ``sup``):
+ties, shared-memory and scratch layouts, an unaligned ``sup``), and against
+the twin at the serving decode's B=1 and B=8, K=512:
 
     python -m pytest --noconftest -m cuda tests/test_torch_nms.py
 """
@@ -23,6 +24,9 @@ import torch
 
 from instance_segmentation_torch.kernels import nms
 from instance_segmentation_torch.ops import decode
+
+import torch_cases
+from torch_cases import cuda_device  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -64,6 +68,7 @@ CASES = {
     "duplicates": (3, 48, 0.2, "duplicates", "random"),
     "all-invalid": (3, 40, 0.2, "random", "none"),
     "all-valid": (3, 200, 0.2, "random", "all"),
+    "classes-b8": (8, 512, 0.2, "classes", "random"),
 }
 
 
@@ -76,6 +81,9 @@ def _case(name, seed=0):
         boxes = _boxes(rng, B, K)
         if boxes_rule == "duplicates":            # each box twice or more, neighbours in rank
             boxes = np.ascontiguousarray(boxes[:, np.sort(rng.integers(0, K // 3, K))])
+        if boxes_rule == "classes":               # 8 classes apart, as the decode offsets them
+            boxes += (rng.integers(0, 8, (B, K, 1)) * 3072.0 * np.array([1, 0, 1, 0]))
+            boxes = boxes.astype(np.float32)
     valid = {"random": rng.uniform(size=(B, K)) > 0.25, "all": np.ones((B, K), bool),
              "none": np.zeros((B, K), bool)}[valid_rule]
     return torch.from_numpy(boxes), torch.from_numpy(valid), th
@@ -251,13 +259,6 @@ def test_decode_boxes_copies_nothing_from_the_host(monkeypatch):
 # The card
 # ---------------------------------------------------------------------------
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    return torch.device("cuda")
-
-
 def _card_sets():
     """(B, K, iou_th, ties) per batch: 130 batches, 1,040 sets."""
     rng = np.random.default_rng(21)
@@ -313,3 +314,18 @@ def test_leader_nms_on_the_card_equals_the_cpu_and_reads_nothing(cuda_device, mo
     got = decode.leader_nms(boxes.to(cuda_device), valid.to(cuda_device), 0.2, 96)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+def test_kernel_equals_the_twin_at_the_serving_decodes_shapes(cuda_device, b):
+    """One launch at B=1 and B=8, K=512 (the serving decode's pre_nms) on
+    rank-sorted boxes of 8 classes, equal to the eager fixpoint on the CPU."""
+    sup, valid = torch_cases.nms_inputs(b, 512)
+    want = nms.nms_keep_plain(sup, valid)
+    before = nms.launches
+    got = nms.nms_keep(sup.to(cuda_device), valid.to(cuda_device))
+    torch.cuda.synchronize()
+    assert nms.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())

@@ -25,6 +25,8 @@ from instance_segmentation_torch.models.layers import (
 )
 from instance_segmentation_torch.weights import conv_kernel_from_flax, load_flax_variables
 
+from torch_cases import cuda_device  # noqa: F401 (a fixture)
+
 torch.set_num_threads(2)
 H, W = 128, 256
 JIT_TOL = 1e-6            # of the conv output's largest magnitude
@@ -199,13 +201,6 @@ def test_entry_points_take_int8(monkeypatch):
     frames = np.random.default_rng(0).integers(0, 256, (1, H, W, 3), dtype=np.uint8)
     dets = pred.predict(frames)
     assert len(calls) == n_quant and tuple(dets.boxes.shape) == (1, 96, 4)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: torch._int_mm's cuBLASLt path runs only there")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

@@ -13,7 +13,7 @@ the JAX package, and the roofline tool (``tools/roofline.py``) on the CPU.
     convolution's labels read from its ``dim_numbers``), and the forward
     counts agree.
 (c) ``kernels/bounds.py`` gives PERF.md's bounds of K1-K6 at the train
-    cell's shapes (phase 7's inputs of ``chip_smoke.py``).
+    cell's shapes (``torch_cases.TRAIN_SHAPE``, the labels with edge cases).
 (d) ``python -m instance_segmentation_torch.tools.roofline --device cpu`` in
     train and ``--eval`` modes at B0 128x256 b2, M=8, P=64: its JSON line
     has the count of ``utils/flops`` and no device measure; and the join of
@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from jax import lax
 
-import chip_smoke
+import torch_cases
 from instance_segmentation_tpu.models import efficientseg as jseg
 from instance_segmentation_torch.kernels import ae_terms, bounds
 from instance_segmentation_torch.losses import losses
@@ -155,10 +155,10 @@ def test_backward_flops_equal_the_jax_vjp(kind):
 
 def test_kernel_bounds_at_the_train_cell():
     """PERF.md §6's bounds (ms, 4 places, all by bytes) of K1 at B=8,
-    K=20000, D=96 and of K2-K6 on phase 7's labels (B=8, M=96, P=1024,
+    K=20000, D=96 and of K2-K6 on the train cell's labels (B=8, M=96, P=1024,
     512x1024); the maps the kernels read but whose bytes depend only on
     their shape are meta tensors."""
-    b, m, p, h, w = chip_smoke.TRAIN_SHAPE
+    b, m, p, h, w = torch_cases.TRAIN_SHAPE
     _, labels = bench_train_batch(b, m, h, w, edge_cases=True)
     t = generate_targets(*(torch.from_numpy(a) for a in labels), h, w, max_points=p,
                          dense_kp=False)
@@ -166,7 +166,7 @@ def test_kernel_bounds_at_the_train_cell():
     cntp = ae_terms.tile_presence(t.points, t.pt_valid, h, w)
     field = torch.empty((b, h, w), device="meta")
     cnt = torch.empty((b, m, h, w), dtype=torch.uint16, device="meta")
-    k1 = [torch.from_numpy(a) for a in chip_smoke.affinity_inputs(*chip_smoke.AFFINITY_SHAPE)]
+    k1 = [torch.from_numpy(a) for a in torch_cases.affinity_inputs(*torch_cases.AFFINITY_SHAPE)]
     got = {"K1": bounds.affinity_assign(*k1),
            "K2": bounds.rasterize_cnt_r2(t.points, t.pt_valid, h, w),
            "K3": bounds.ae_terms_fwd(field, field, field, field, None, None, tab, None, cntp),

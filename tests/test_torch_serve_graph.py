@@ -26,7 +26,10 @@ request and K1 called each request, and detections kept from one request
 survive the next. On the card: the same at D3 shape, b1 and b8 and in
 kmeans mode; detections kept survive the next request; a traced graphed
 request opens three ``graph:replay`` spans and no ``sync:*`` span, launches
-K1 once and the NMS kernel only inside its graph.
+K1 once and the NMS kernel only inside its graph; the d3-serve cell's
+Predictor at b1 and b8 launches K1 once a request, the NMS kernel from the
+host once an eager request and once a capture and on the card once a
+replayed request (a profiler window), and K1 there equals its CPU twin.
 """
 
 import collections
@@ -43,14 +46,18 @@ from torch.profiler import ProfilerActivity, profile
 from benchmark.spans import BLOCKS
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig
 from instance_segmentation_torch import serve
-from instance_segmentation_torch.kernels import affinity
+from instance_segmentation_torch.kernels import affinity, nms
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, forward_and_decode
 from instance_segmentation_torch.parallel import multihost, spatial
 from instance_segmentation_torch.parallel.mesh import Mesh, MeshSpec, batch_shard, make_mesh
 from instance_segmentation_torch.serve import Predictor, ServingModel
+from instance_segmentation_torch.tools.multichip import first_k1_inputs
 from instance_segmentation_torch.utils import profiling
 from instance_segmentation_torch.utils.flops import OpCounter, total_flops
+
+import torch_cases
+from torch_cases import cuda_device  # noqa: F401 (a fixture)
 
 H, W = 128, 256
 CPU = torch.device("cpu")
@@ -355,13 +362,6 @@ CARD_CASES = {
 }
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: a CUDA graph is captured and replayed only there")
-    return torch.device("cuda")
-
-
 class _Heads:
     """A forward hook on the model keeping each call's outputs."""
 
@@ -498,7 +498,6 @@ def test_graphed_detections_survive_the_next_request_on_the_card(cuda_device):
 @pytest.mark.cuda
 def test_a_traced_graphed_request_holds_no_host_wait_and_launches_k1(cuda_device):
     from benchmark import trace
-    from instance_segmentation_torch.kernels import nms
     pred = _predictor(CARD_CASES["d3-bf16"][0], cuda_device, CARD_CASES["d3-bf16"][1])
     frames = torch.as_tensor(_frames(hw=CARD_CASES["d3-bf16"][1], seed=19)).pin_memory()
 
@@ -517,3 +516,47 @@ def test_a_traced_graphed_request_holds_no_host_wait_and_launches_k1(cuda_device
     assert "decode.boxes" not in count and "decode.assemble" not in count
     # the decode's kernels: the same, plus the copies into and out of its graphs
     assert 0 <= replay["span_kernels"]["decode"] - eager["span_kernels"]["decode"] <= 24
+
+
+def _device_launches(fn, name: str, calls: int = 3) -> float:
+    """Device kernels whose name holds ``name`` per call of ``fn`` (after a
+    warm-up), in one profiler window: a replayed graph's kernels count one
+    by one."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(name in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+@pytest.mark.cuda
+def test_d3_requests_launch_k1_once_and_the_nms_kernel_once_in_the_graph(cuda_device):
+    cfg, hw = CARD_CASES["d3-bf16"]
+    dcfg = DecodeConfig()
+    pred = Predictor(cfg, dcfg, torch.Generator().manual_seed(0), cuda_device,
+                     orig_hw=(2 * hw[0], 2 * hw[1]), scale=2.0)
+    frames = _frames(8, hw=hw, seed=0)
+    k1, host = affinity.launches, nms.launches
+    with first_k1_inputs() as served:             # the eager requests
+        pred.predict(frames)
+    pred.predict(frames[:1])
+    assert nms.launches - host == 2
+    host = nms.launches
+    requests = [frames[:1], frames, frames[:1], frames]      # captures, then replays
+    dets = [pred.predict(x) for x in requests]
+    torch.cuda.synchronize()
+    assert affinity.launches - k1 == 2 + len(requests)
+    assert nms.launches - host == 2
+    for x, d in zip(requests, dets):
+        assert tuple(d.boxes.shape) == (len(x), dcfg.max_dets, 4)
+        assert tuple(d.polygons.shape) == (len(x), dcfg.max_dets, dcfg.max_poly, 2)
+        assert d.poly_len.dtype == d.classes.dtype == torch.int32
+        for t in (d.boxes, d.scores, d.polygons, d.centers):
+            assert bool(torch.isfinite(t).all())
+    for b in (1, 8):
+        assert _device_launches(lambda: pred.predict(frames[:b]), "nms_kernel") == 1.0, b
+    cmp = torch_cases.against_cpu_twin(*affinity.affinity_assign(*served), served)
+    assert cmp["bad"] == 0 and cmp["best_ok"], cmp

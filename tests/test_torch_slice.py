@@ -1,7 +1,9 @@
 """The port's slice end to end on the CPU: a serve.Predictor (EfficientSeg-B0
 at 128x256, float32, kp_th 2000) holding JAX-converted weights, against the
-JAX model and decode on the same weights and frames; and the port's import
-boundary (no jax, flax, yaml, cv2, PIL or orbax)."""
+JAX model and decode on the same weights and frames; the port's import
+boundary (no jax, flax, yaml, cv2, PIL or orbax); and each test file the card
+runs imports where none of those can be imported, as on the machine with the
+card (README: ``pytest --noconftest -m cuda``)."""
 
 import os
 import subprocess
@@ -97,10 +99,10 @@ def test_predictor_answers_requests(slice_case):
 
 
 def test_port_imports_no_jax_flax_yaml_or_cv2():
-    """Every module of the port, the entry points and chip_smoke.py import
-    none of jax, flax, yaml, cv2, PIL, orbax or the JAX package."""
+    """Every module of the port and the entry points import none of jax,
+    flax, yaml, cv2, PIL, orbax or the JAX package."""
     prog = (
-        "import sys, chip_smoke\n"
+        "import sys\n"
         "import instance_segmentation_torch.serve, instance_segmentation_torch.device\n"
         "import instance_segmentation_torch.kernels.build\n"
         "import instance_segmentation_torch.training.train_step, instance_segmentation_torch.losses\n"
@@ -108,18 +110,28 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
         "import instance_segmentation_torch.kernels.minr2, instance_segmentation_torch.tools.fullres_demo\n"
         "import instance_segmentation_torch.ops.targets, instance_segmentation_torch.weights\n"
         "import instance_segmentation_torch.evaluate, instance_segmentation_torch.test\n"
+        "import instance_segmentation_torch.train\n"
         "import instance_segmentation_torch.configs, instance_segmentation_torch.data\n"
+        "import instance_segmentation_torch.data.packed_dataset\n"
         "import instance_segmentation_torch.transforms, instance_segmentation_torch.evaluation\n"
         "import instance_segmentation_torch.evaluation.device_iou\n"
         "import instance_segmentation_torch.utils.png, instance_segmentation_torch.utils.image\n"
+        "import instance_segmentation_torch.utils.jpeg\n"
         "import instance_segmentation_torch.utils.visualize, instance_segmentation_torch.utils.meters\n"
         "import instance_segmentation_torch.utils.logger, instance_segmentation_torch.utils.checkpoint\n"
         "import instance_segmentation_torch.tools.make_synthetic_cityscapes\n"
+        "import instance_segmentation_torch.tools.make_synthetic_coco\n"
+        "import instance_segmentation_torch.tools.preprocess_cityscapes\n"
         "import instance_segmentation_torch.tools.profile_infer\n"
         "import instance_segmentation_torch.tools.profile_decode\n"
         "import instance_segmentation_torch.tools.profile_infer_blocks\n"
         "import instance_segmentation_torch.tools.profile_blocks\n"
         "import instance_segmentation_torch.tools.bench_train_data\n"
+        "import instance_segmentation_torch.tools.multichip, instance_segmentation_torch.tools.roofline\n"
+        "import instance_segmentation_torch.tools.export_model\n"
+        "import instance_segmentation_torch.tools.overfit_demo\n"
+        "import instance_segmentation_torch.tools.convert_polygon\n"
+        "import instance_segmentation_torch.tools.jpeg_digests\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'PIL',\n"
         "                                    'orbax', 'instance_segmentation_tpu'))\n"
@@ -130,18 +142,26 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
 
 
-def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
-    """Without a CUDA device chip_smoke exits non-zero and prints no result;
-    copied alone into an empty directory it fails to import the port."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
-                       cwd=REPO, timeout=300)
-    assert r.returncode != 0 and r.stdout == "" and "CUDA" in r.stderr
-    (tmp_path / "chip_smoke.py").write_bytes(open(os.path.join(REPO, "chip_smoke.py"),
-                                                   "rb").read())
-    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
-                       cwd=tmp_path, timeout=300,
-                       env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
-    assert r.returncode != 0 and r.stdout == ""
-    assert "instance_segmentation_torch" in r.stderr
+CARD_FILES = ("test_torch_affinity", "test_torch_nms", "test_torch_losses", "test_torch_minr2",
+              "test_torch_quant", "test_torch_serve_graph", "test_torch_on_card")
+
+
+@pytest.mark.parametrize("name", CARD_FILES)
+def test_card_file_imports_without_jax(name):
+    """The file imports in a process where jax, flax, the JAX package,
+    PyYAML, OpenCV and PIL cannot be imported, from the test directory and
+    the repository as ``pytest --noconftest`` finds them."""
+    prog = (
+        "import sys\n"
+        "class Absent:\n"
+        "    def find_spec(self, fullname, path=None, target=None):\n"
+        "        if fullname.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'PIL',\n"
+        "                                      'instance_segmentation_tpu'):\n"
+        "            raise ImportError(f'no module named {fullname!r} on the card machine')\n"
+        "sys.meta_path.insert(0, Absent())\n"
+        f"import {name}\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([os.path.join(REPO, "tests"), REPO])}
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
+                       cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
