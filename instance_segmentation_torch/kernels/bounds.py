@@ -163,17 +163,29 @@ def ae_terms_bwd(ey, ex, sy, sx, r2, cnt, tab, lut, cntp, g_pos=None, g_neg=None
                 pairs * px * 51 + any_tiles * px * (n_valid * 10 + 21))
 
 
+def bn_act(x, scale, shift=None, act: str = "none") -> Work:
+    """The BN kernel reads x once and writes y once (the element size each),
+    and reads the scale and shift tables; per element a multiply, an add
+    with a shift, and SiLU's 4 (negate, exp, add, divide) or ReLU's 1."""
+    n, size = x.numel(), x.element_size()
+    tables = sum(t.numel() * t.element_size() for t in (scale, shift) if t is not None)
+    ops = 1 + (shift is not None) + {"none": 0, "silu": 4, "relu": 1}[act]
+    return Work(2 * n * size + tables, ops * n)
+
+
 # each wrapper's work, by the name its launch count has
 WORK = {"affinity_assign": affinity_assign, "rasterize_cnt_r2": rasterize_cnt_r2,
         "rasterize_nmap": rasterize_nmap, "ae_terms_fwd": ae_terms_fwd,
-        "ae_terms_bwd": ae_terms_bwd, "minr2_from_cnt": minr2_from_cnt, "nms_keep": nms_keep}
+        "ae_terms_bwd": ae_terms_bwd, "minr2_from_cnt": minr2_from_cnt, "nms_keep": nms_keep,
+        "bn_act": bn_act}
 # each device kernel of the port (the ``*_kernel`` in its name) -> its wrapper
 DEVICE_KERNELS: Dict[str, str] = {
     "affinity_kernel": "affinity_assign", "cnt_r2_kernel": "rasterize_cnt_r2",
     "nmap_bin_kernel": "rasterize_nmap", "nmap_band_kernel": "rasterize_nmap",
     "ae_fwd_kernel": "ae_terms_fwd", "ae_sum_kernel": "ae_terms_fwd",
-    "ae_bwd_kernel": "ae_terms_bwd", "minr2_kernel": "minr2_from_cnt", "nms_kernel": "nms_keep"}
-# the TPU kernel each wrapper replaces, K1-K6 (NMS replaces none)
+    "ae_bwd_kernel": "ae_terms_bwd", "minr2_kernel": "minr2_from_cnt", "nms_kernel": "nms_keep",
+    "bn_act_kernel": "bn_act"}
+# the TPU kernel each wrapper replaces, K1-K6 (NMS and BN replace none)
 TAGS = {"affinity_assign": "K1", "rasterize_cnt_r2": "K2", "ae_terms_fwd": "K3",
         "ae_terms_bwd": "K4", "rasterize_nmap": "K5", "minr2_from_cnt": "K6",
-        "nms_keep": "NMS"}
+        "nms_keep": "NMS", "bn_act": "BN"}

@@ -45,8 +45,9 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from instance_segmentation_torch.kernels import bn_act
 from instance_segmentation_torch.models.layers import (
-    BatchNorm, Conv2dSame, depthwise_conv, drop_connect, swish,
+    BatchNorm, Conv2dSame, depthwise_conv, drop_connect, frozen, swish,
 )
 from instance_segmentation_torch.parallel import spatial
 from instance_segmentation_torch.utils.profiling import span
@@ -229,14 +230,15 @@ class MBConv(nn.Module):
         a = self.args
         inputs = x
         if a.expand_ratio != 1:
-            x = swish(self._bn0(self._expand_conv(x)))
-        x = swish(self._bn1(self._depthwise_conv(x)))
+            x = self._bn0(self._expand_conv(x), act="silu")
+        x = self._bn1(self._depthwise_conv(x), act="silu")
         if self.has_se:
             mesh = spatial.active()
             s = (x.mean(dim=(2, 3), keepdim=True) if mesh is None
                  else spatial.spatial_mean(x, mesh))
-            s = self._se_expand(swish(self._se_reduce(s)))
-            x = torch.sigmoid(s) * x
+            gate = torch.sigmoid(self._se_expand(swish(self._se_reduce(s))))
+            x = (bn_act.bn_act(x, gate.reshape(gate.shape[:2]).contiguous()) if frozen(self)
+                 else gate * x)
         x = self._bn2(self._project_conv(x))
         return _residual(self, x, inputs, generator)
 
@@ -267,9 +269,9 @@ class FusedMBConv(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         inputs = x
         if self.args.expand_ratio != 1:
-            x = self._bn2(self._project_conv(swish(self._bn0(self._expand_conv(x)))))
+            x = self._bn2(self._project_conv(self._bn0(self._expand_conv(x), act="silu")))
         else:
-            x = swish(self._bn2(self._project_conv(x)))
+            x = self._bn2(self._project_conv(x), act="silu")
         return _residual(self, x, inputs, generator)
 
 
@@ -296,7 +298,7 @@ class EfficientNetFeatures(nn.Module):
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = swish(self._bn0(self._conv_stem(x)))
+        x = self._bn0(self._conv_stem(x), act="silu")
         features = []
         for name, blocks in self._runs:
             with span(name):

@@ -17,7 +17,7 @@ from typing import List
 import torch
 from torch import nn
 
-from instance_segmentation_torch.models.layers import BatchNorm, SeparableConv, swish
+from instance_segmentation_torch.models.layers import BatchNorm, SeparableConv
 
 
 class _Tower(nn.Module):
@@ -36,7 +36,7 @@ class _Tower(nn.Module):
         outs = []
         for x, bns in zip(feats, self.bn_list):
             for conv, bn in zip(self.conv_list, bns):
-                x = swish(bn(conv(x)))
+                x = bn(conv(x), act="silu")
             x = self.header(x).permute(0, 2, 3, 1)
             outs.append(x.reshape(x.shape[0], -1, self.per_anchor))
         return torch.cat(outs, dim=1)

@@ -11,7 +11,11 @@ dtype already (``cast_convs``), so the cast is free; training holds float32
 master weights, as flax does (``param_dtype=f32``, ``dtype=bf16``), and the
 gradient flows back through the cast. Batch-norm parameters and statistics
 stay float32, and the per-channel ``scale``/``shift`` are formed in float32
-and cast to the activation dtype before they are applied.
+and cast to the activation dtype before they are applied. A frozen module
+(``frozen``: eval with grad disabled) applies them, with the activation that
+follows and the squeeze-and-excitation gate, through the op
+``kernels/bn_act.bn_act``: one kernel on a CUDA tensor, the same
+composition on a CPU tensor.
 
 Batch norm follows ``nn.Module.train()``/``.eval()``: batch statistics (the
 biased variance) and a flax-style running-average update in training, the
@@ -45,6 +49,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from instance_segmentation_torch.kernels import bn_act
 from instance_segmentation_torch.parallel import spatial
 from instance_segmentation_torch.utils.profiling import span
 
@@ -246,6 +251,13 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def frozen(module: nn.Module) -> bool:
+    """Whether ``module`` runs its eval forward with grad disabled: then its
+    batch norms keep their coefficients and apply them, with the activation
+    after them and the gate, through ``bn_act.bn_act``."""
+    return not module.training and not torch.is_grad_enabled()
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum of ``x`` over the ranks of ``group``. Every rank's loss depends
     on the sum, so the backward sums the cotangent over the ranks too. Each
@@ -284,7 +296,20 @@ class BatchNorm(nn.Module):
     group's ranks (differentiably) before the mean and variance are formed:
     every rank gets the statistics of the global batch, and so the same
     running statistics. ``torch.nn.SyncBatchNorm`` keeps the conventions of
-    ``BatchNorm2d`` and is not used either."""
+    ``BatchNorm2d`` and is not used either.
+
+    ``act`` ("none", "silu", "relu") is the activation applied after the
+    norm. Frozen (``frozen``: eval with grad disabled), the module applies
+    it with ``bn_act.bn_act`` and keeps its coefficients, one pair for each
+    activation dtype and device. It forms them again only when the storage
+    or version (``_version``) of the weight, bias or a running statistic
+    changes, as after an in-place load or a training step, and writes them
+    into the tensors it keeps. So a CUDA graph captured after the first
+    frozen call reads the coefficients of the newest frozen call: after a
+    change to the weights, one eager call brings every graph up to date
+    (``serve.ServingModel``). Where the sources have no storage or version
+    to key on (fake tensors under ``torch.export`` or ``torch.compile``,
+    the meta device, inference tensors), they are formed on every call."""
 
     def __init__(self, channels: int, eps: float = BN_EPS_DET,
                  momentum: float = BN_MOMENTUM_DET):
@@ -296,6 +321,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self._kept = {}     # (dtype, device) -> [key, scale, shift] of the frozen coefficients
         self.eval()
 
     def _batch_moments(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -309,7 +335,38 @@ class BatchNorm(nn.Module):
         sums = _AllReduceSum.apply(sums, self.process_group)
         return sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _coefficients(self, mean: torch.Tensor, var: torch.Tensor,
+                      dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) [C], formed in float32 and cast to ``dtype``."""
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        return scale.to(dtype), shift.to(dtype)
+
+    def _frozen_coefficients(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval coefficients in ``dtype``, kept while their sources are
+        unchanged and rewritten in place when they change (see the class)."""
+        sources = (self.weight, self.bias, self.running_mean, self.running_var)
+        if (torch.compiler.is_compiling() or self.weight.device.type == "meta"
+                or any(t.is_inference() for t in sources)):
+            return self._coefficients(self.running_mean, self.running_var, dtype)
+        key = tuple((t.data_ptr(), t._version) for t in sources)
+        kept = self._kept.get((dtype, self.weight.device))
+        if kept is not None and kept[0] == key:
+            return kept[1:]
+        # outside inference mode, so that a later call outside it can write them
+        with torch.inference_mode(False), torch.no_grad():
+            coefficients = self._coefficients(self.running_mean, self.running_var, dtype)
+            if kept is None:
+                kept = self._kept[(dtype, self.weight.device)] = [key, *coefficients]
+            else:
+                for held, new in zip(kept[1:], coefficients):
+                    held.copy_(new)
+                kept[0] = key
+        return kept[1:]
+
+    def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        if frozen(self):
+            return bn_act.bn_act(x, *self._frozen_coefficients(x.dtype), act)
         if self.training:
             mean, mean_sq = self._batch_moments(x.float())
             var = torch.clamp_min(mean_sq - mean.square(), 0.0)
@@ -319,10 +376,7 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        shift = self.bias - mean * scale
-        return (x * scale.to(x.dtype)[:, None, None]
-                + shift.to(x.dtype)[:, None, None])
+        return bn_act.bn_act_plain(x, *self._coefficients(mean, var, x.dtype), act)
 
 
 def set_batchnorm_group(module: nn.Module, group) -> int:
@@ -349,10 +403,8 @@ class SeparableConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.pointwise_conv(self.depthwise_conv(x))
         if self.bn is not None:
-            x = self.bn(x)
-        if self.activation:
-            x = swish(x)
-        return x
+            return self.bn(x, act="silu" if self.activation else "none")
+        return swish(x) if self.activation else x
 
 
 def drop_connect(x: torch.Tensor, rate: float,

@@ -32,9 +32,18 @@ from instance_segmentation_torch.models.layers import (
 HEADS: Tuple[Tuple[str, int], ...] = (("kp", 1), ("ae", 4), ("tan", 2))
 
 
-def _double_conv(in_channels: int, channels: int, quant: bool = False) -> nn.Sequential:
-    """Two (3x3 conv, BN, ReLU); keys ``.0/.3`` conv and ``.1/.4`` BN."""
-    return nn.Sequential(
+class _DoubleConv(nn.Sequential):
+    """Two (3x3 conv, BN, ReLU); keys ``.0/.3`` conv and ``.1/.4`` BN. Each
+    BN applies the ReLU after it (``BatchNorm(act="relu")``); the
+    ``nn.ReLU`` entries keep the reference's indices."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv0, bn0, _, conv1, bn1, _ = self
+        return bn1(conv1(bn0(conv0(x), act="relu")), act="relu")
+
+
+def _double_conv(in_channels: int, channels: int, quant: bool = False) -> _DoubleConv:
+    return _DoubleConv(
         Conv2d(in_channels, channels, 3, padding=1, quant=quant),
         BatchNorm(channels, eps=BN_EPS_UNET, momentum=BN_MOMENTUM_UNET), nn.ReLU(),
         Conv2d(channels, channels, 3, padding=1, quant=quant),

@@ -101,8 +101,11 @@ class ServingModel(EfficientSeg):
     eagerly (cuDNN and cuBLAS set themselves up), the second captures the
     forward, from the frames through the five heads, and replays it, and
     every later call copies its frames into the graph's input and replays.
-    The graphs read the weights where they lie, so these stay fixed once the
-    Predictor is built. Each call returns clones of the graph's outputs, which
+    The graphs read the weights where they lie, and the batch norms'
+    coefficients where the first call keeps them (``models/layers.BatchNorm``),
+    so the weights stay fixed once the Predictor is built; after a change
+    made in place, one eager call rewrites the kept coefficients where the
+    graphs read them. Each call returns clones of the graph's outputs, which
     the caller may keep past the next call.
 
     A call runs eagerly where a replay would compute something else or go
@@ -162,7 +165,7 @@ class Predictor:
         self.anchors = torch.tensor(anchors, device=self.device)
         self._decode_graphs = _GraphCache()   # keys (the frames' key, "candidates" | "assemble")
         if self.device.type == "cuda":
-            build.build_all(("affinity", "nms"))     # K1 and NMS, compiled at once
+            build.build_all(("affinity", "nms", "bn_act"))   # K1, NMS, BN, compiled at once
 
     def _pageable(self, images: torch.Tensor) -> bool:
         """Whether, while a profiler records, ``images``' copy to the device

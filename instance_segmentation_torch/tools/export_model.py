@@ -7,7 +7,9 @@ takes a uint8 batch [B, H, W, 3] and returns the flat tuple
 ``decode_output(DecodeConfig(exact_topk=...))`` (``--topk approx``: the
 value-ordered top-k); K1 appears in it as the custom op
 ``iseg::affinity_assign``, which importing ``kernels/affinity.py`` registers
-(``load`` does, before it reads the file). The JAX tool cross-lowers for
+(``load`` does, before it reads the file), and, in a program exported on
+the card, each batch norm and gate as ``iseg::bn_act``, which the models'
+import of ``kernels/bn_act.py`` registers. The JAX tool cross-lowers for
 another platform (``--platform``); ``torch.export`` records the program for
 the device it traced on, so this tool exports on ``--device`` (the card
 unless ``cpu`` is given) and the program runs there.
@@ -84,8 +86,8 @@ def build_export(compound: int, hw, batch: int, num_classes: int, quant: str = "
 
 
 def load(path: str) -> torch.export.ExportedProgram:
-    """An exported program read back (the op it calls is registered by this
-    module's import of ``kernels/affinity.py``)."""
+    """An exported program read back (the ops it calls are registered by
+    this module's imports of ``kernels/affinity.py`` and of the models)."""
     return torch.export.load(path)
 
 

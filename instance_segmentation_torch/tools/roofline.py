@@ -53,7 +53,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from instance_segmentation_torch.kernels import ae_terms, bounds, minr2, rasterize
+from instance_segmentation_torch.kernels import ae_terms, bn_act, bounds, minr2, rasterize
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, forward_and_decode
@@ -66,7 +66,7 @@ from instance_segmentation_torch.weights import init_random
 # the kernel wrappers, where the step calls them
 _WRAPPERS = ((rasterize, "rasterize_cnt_r2"), (rasterize, "rasterize_nmap"),
              (minr2, "minr2_from_cnt"), (ae_terms, "ae_terms_fwd"), (ae_terms, "ae_terms_bwd"),
-             (decode, "affinity_assign"), (decode, "nms_keep"))
+             (decode, "affinity_assign"), (decode, "nms_keep"), (bn_act, "bn_act"))
 
 
 @contextlib.contextmanager

@@ -1,14 +1,19 @@
 """Port layers (instance_segmentation_torch/models/layers.py) against their
 flax counterparts on the same seeded numpy inputs and weights, float32, to
-1e-5."""
+1e-5; and eval batch norm as one pass (``kernels/bn_act.py``): the op's CPU
+twin against the composition, the activation fused into the norm, the
+coefficients a frozen norm keeps and what changes them, and which calls go
+to the op (fake CUDA tensors)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from instance_segmentation_tpu.models import layers as jl
+from instance_segmentation_torch.kernels import bn_act
 from instance_segmentation_torch.models import layers as tl
 from instance_segmentation_torch.weights import conv_kernel_from_flax
 
@@ -140,3 +145,242 @@ def test_separable_conv_matches_flax(norm, activation):
         _set_bn(tm.bn, params, stats)
     np.testing.assert_allclose(_to_nhwc(tm(_to_torch(x))), want, **TOL)
 
+
+
+# ---------------------------------------------------------------------------
+# Eval batch norm as one pass (kernels/bn_act.py): the op's CPU twin, the
+# fused activation, the kept coefficients and the route to the op
+# ---------------------------------------------------------------------------
+
+ACTIVATIONS = {"none": lambda y: y, "silu": F.silu, "relu": F.relu}
+
+
+def _bn(c=8, eps=tl.BN_EPS_DET, seed=7):
+    rng = np.random.default_rng(seed)
+    bn = tl.BatchNorm(c, eps=eps)
+    _set_bn(bn, *_bn_variables(rng, c))
+    return bn
+
+
+def _x(dtype=torch.float32, channels_last=False, shape=(2, 8, 5, 6), seed=8):
+    x = torch.from_numpy(np.random.default_rng(seed).normal(0, 3, shape).astype(np.float32))
+    x = x.to(dtype)
+    return x.contiguous(memory_format=torch.channels_last) if channels_last else x
+
+
+def _composition(bn, x, mean, var):
+    """The eval batch norm as the port wrote it before the op: the float32
+    coefficients cast and broadcast, a multiply and an add."""
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    shift = bn.bias - mean * scale
+    return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ["none", "silu", "relu", "gate"])
+def test_bn_act_cpu_twin_is_the_composition(act, dtype, channels_last):
+    x = _x(dtype, channels_last)
+    rng = np.random.default_rng(9)
+    if act == "gate":
+        s = torch.from_numpy(rng.normal(0, 2, (2, 8, 1, 1)).astype(np.float32)).to(dtype)
+        got = bn_act.bn_act(x, torch.sigmoid(s).reshape(2, 8))
+        want = torch.sigmoid(s) * x
+    else:
+        scale, shift = (torch.from_numpy(rng.normal(0, 1, 8).astype(np.float32)).to(dtype)
+                        for _ in range(2))
+        got = bn_act.bn_act(x, scale, shift, act)
+        want = ACTIVATIONS[act](x * scale[:, None, None] + shift[:, None, None])
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["frozen", "eval_grad", "training"])
+@pytest.mark.parametrize("act", ["none", "silu", "relu"])
+def test_batchnorm_with_act_equals_the_activation_after_it(act, mode):
+    x = _x(torch.bfloat16)
+    fused, plain = _bn(), _bn()
+    for bn in (fused, plain):
+        bn.train(mode == "training")
+    with torch.set_grad_enabled(mode != "frozen"):
+        got = fused(x, act=act)
+        want = ACTIVATIONS[act](plain(x))
+    assert torch.equal(got, want)
+    assert torch.equal(fused.running_mean, plain.running_mean)
+    assert torch.equal(fused.running_var, plain.running_var)
+
+
+def _load_state(bn):
+    state = {k: v + 0.25 for k, v in bn.state_dict().items()}
+    bn.load_state_dict(state)
+
+
+CHANGES = {
+    "weight": lambda bn: bn.weight.mul_(1.5), "bias": lambda bn: bn.bias.add_(0.5),
+    "running_mean": lambda bn: bn.running_mean.add_(0.5),
+    "running_var": lambda bn: bn.running_var.mul_(2.0), "load_state_dict": _load_state,
+    "training_step": lambda bn: (bn.train(), bn(_x()), bn.eval()),
+}
+
+
+def _kept(bn, dtype=torch.bfloat16):
+    """The coefficient tensors ``bn`` keeps for ``dtype`` on the CPU."""
+    return bn._kept[(dtype, torch.device("cpu"))][1:]
+
+
+@pytest.mark.parametrize("change", list(CHANGES))
+def test_frozen_coefficients_follow_a_change_made_in_place(change):
+    """The next frozen call after a change forms the coefficients anew and
+    writes them into the tensors kept before, where a captured graph reads
+    them."""
+    bn, x = _bn(), _x(torch.bfloat16)
+    with torch.no_grad():
+        before = bn(x, act="silu")
+        scale, shift = kept = _kept(bn)
+        assert torch.equal(bn(x, act="silu"), before)
+        assert all(a is b for a, b in zip(_kept(bn), kept))
+        CHANGES[change](bn)
+        after = bn(x, act="silu")
+    want = F.silu(_composition(bn, x, bn.running_mean, bn.running_var)).detach()
+    assert torch.equal(after, want) and not torch.equal(after, before)
+    assert all(a is b for a, b in zip(_kept(bn), kept))
+    assert torch.equal(F.silu(x * scale[:, None, None] + shift[:, None, None]), want)
+
+
+def test_frozen_coefficients_kept_in_inference_mode_are_rewritten_outside_it():
+    """Coefficients first kept under ``torch.inference_mode`` (as a served
+    request keeps them) are ordinary tensors: a frozen call outside it
+    rewrites them after a change; each dtype keeps a pair of its own."""
+    bn, x = _bn(), _x(torch.bfloat16)
+    with torch.inference_mode():
+        bn(x)
+        bn(x.float())
+    kept, kept_f32 = _kept(bn), _kept(bn, torch.float32)
+    f32_before = [t.clone() for t in kept_f32]
+    assert not any(t.is_inference() for t in (*kept, *kept_f32))
+    assert kept[0].dtype == torch.bfloat16 and kept_f32[0].dtype == torch.float32
+    with torch.no_grad():
+        bn.weight.mul_(1.5)
+        got = bn(x)
+    assert torch.equal(got, _composition(bn, x, bn.running_mean, bn.running_var).detach())
+    assert all(a is b for a, b in zip(_kept(bn), kept))
+    assert all(torch.equal(a, b) for a, b in zip(kept_f32, f32_before))
+
+
+def test_frozen_coefficients_are_formed_under_a_dispatch_mode():
+    """A FLOP counter sees what the forward runs: the coefficients formed
+    on the first frozen call, and read from what it kept on the next."""
+    from instance_segmentation_torch.utils.flops import OpCounter
+    bn, x = _bn(), _x()
+    with torch.no_grad():
+        with OpCounter() as first:
+            bn(x)
+        with OpCounter() as warm:
+            bn(x)
+    assert "aten::rsqrt" in [o.name for o in first.ops]
+    assert [o.name for o in warm.ops] == ["iseg::bn_act"]
+
+
+@pytest.mark.parametrize("mode", ["eval_grad", "training"])
+def test_batchnorm_with_grad_keeps_the_composition_and_its_gradients(mode, monkeypatch):
+    monkeypatch.setattr(bn_act, "bn_act", lambda *a: pytest.fail("the op was called"))
+    bn, ref = _bn(), _bn()
+    for m in (bn, ref):
+        m.train(mode == "training")
+    x, x_ref = _x().requires_grad_(True), _x().requires_grad_(True)
+    y = bn(x, act="silu")
+    if mode == "training":
+        xf = x_ref.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+    else:
+        mean, var = ref.running_mean, ref.running_var
+    want = F.silu(_composition(ref, x_ref, mean, var))
+    assert torch.equal(y, want)
+    g = torch.from_numpy(np.random.default_rng(10).normal(0, 1, y.shape).astype(np.float32))
+    y.backward(g)
+    want.backward(g)
+    for a, b in ((x.grad, x_ref.grad), (bn.weight.grad, ref.weight.grad),
+                 (bn.bias.grad, ref.bias.grad)):
+        assert torch.equal(a, b)
+    assert not bn._kept
+
+
+def _fake_cuda_strided():
+    return torch.empty_strided((2, 8, 6, 5), (480, 60, 10, 2), dtype=torch.bfloat16,
+                               device="cuda")
+
+
+def test_bn_act_takes_cuda_tensors_it_reads():
+    """The kernel reads contiguous and channels-last ``x`` and refuses any
+    other layout, before it reads a byte."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        nchw = torch.empty(2, 8, 6, 10, dtype=torch.bfloat16, device="cuda")
+        nhwc = torch.empty_strided((2, 8, 6, 10), (480, 1, 80, 8), dtype=torch.bfloat16,
+                                   device="cuda")
+        assert bn_act.layout(nchw) == "nchw" and bn_act.layout(nhwc) == "nhwc"
+        strided = _fake_cuda_strided()
+        assert bn_act.layout(strided) is None
+        assert bn_act.layout(torch.empty(8, 6, 10, device="cuda")) is None
+        one = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="contiguous or channels-last"):
+            bn_act._launch(strided, one, one, "none")
+
+
+@pytest.fixture
+def op_calls(monkeypatch):
+    """The arguments of each ``bn_act.bn_act`` call, whose CPU twin runs."""
+    seen = []
+
+    def record(x, scale, shift=None, act="none"):
+        seen.append((x, scale, shift, act))
+        return bn_act.bn_act_plain(x, scale, shift, act)
+    monkeypatch.setattr(bn_act, "bn_act", record)
+    return seen
+
+
+@pytest.mark.parametrize("case, calls", [
+    ("nchw", 1), ("nhwc", 1), ("strided", 1), ("eval_grad", 0), ("training", 0)])
+def test_batchnorm_takes_the_op_only_frozen_on_a_layout_it_reads(case, calls, op_calls):
+    """Frozen, a batch norm hands the op every input: the CPU twin takes any
+    strides, and on the card the kernel refuses one it cannot read, where a
+    slower path would hide it."""
+    bn, x = _bn(), _x(torch.bfloat16, channels_last=case == "nhwc", shape=(2, 8, 6, 10))
+    if case == "strided":
+        x = x[..., ::2]
+    bn.train(case == "training")
+    with torch.set_grad_enabled(case in ("eval_grad", "training")):
+        y = bn(x, act="relu")
+    assert len(op_calls) == calls
+    bn.eval()
+    with torch.no_grad():
+        want = F.relu(_composition(bn, x, bn.running_mean, bn.running_var))
+    assert case == "training" or torch.equal(y, want)
+    if calls:
+        assert op_calls[0][3] == "relu" and op_calls[0][1].dtype == torch.bfloat16
+    if case == "strided":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            one = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+            with pytest.raises(ValueError, match="contiguous or channels-last"):
+                bn_act._launch(_fake_cuda_strided(), one, one, "relu")
+
+
+@pytest.mark.parametrize("mode", ["frozen", "training"])
+def test_mbconv_gate_takes_the_op_when_frozen(mode, op_calls):
+    """An MBConv with squeeze-and-excitation: frozen, its three batch norms
+    and its gate (a scale per image and channel) take the op, and give what
+    the composition gives; in training none does."""
+    from instance_segmentation_torch.models.efficientnet import BlockArgs, MBConv
+    block = MBConv(BlockArgs(3, 1, 16, 16, 6, 1, 0.25)).train(mode == "training")
+    x = _x(shape=(2, 16, 8, 8))
+    with torch.set_grad_enabled(mode == "training"):
+        y = block(x)
+    if mode == "training":
+        assert not op_calls
+        return
+    assert [(tuple(a[1].shape), a[2] is None, a[3]) for a in op_calls] == [
+        ((96,), False, "silu"), ((96,), False, "silu"), ((2, 96), True, "none"),
+        ((16,), False, "none")]
+    with torch.enable_grad():
+        assert torch.equal(y, block(x))       # eval with grad: the composition

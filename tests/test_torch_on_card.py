@@ -568,8 +568,9 @@ def test_exported_program_equals_the_live_model_and_the_predictor(cuda_device, t
 def test_roofline_eval_joins_the_device_time_and_the_decode_kernels(cuda_device):
     """``tools/roofline --eval`` (B3 bf16 512x1024 b8, forward and decode),
     in a process of its own: at least 90% of the device's kernel time joined
-    to counted operations; K1 and the NMS kernel launched, with the bytes
-    ``kernels/bounds.py`` gives them."""
+    to counted operations; K1, the NMS kernel and the batch-norm kernel
+    launched, with the bytes ``kernels/bounds.py`` gives them, the last once
+    a batch norm or gate of the forward."""
     out = subprocess.run(
         [sys.executable, "-m", "instance_segmentation_torch.tools.roofline", "--eval",
          "--batch", "8", "--by", "block", "--iters", "5", "--top", "5"],
@@ -577,10 +578,11 @@ def test_roofline_eval_joins_the_device_time_and_the_decode_kernels(cuda_device)
     assert out.returncode == 0, out.stderr[-3000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["matched_share"] is not None and rec["matched_share"] >= 0.9, rec["matched_share"]
-    for name in ("affinity_assign", "nms_keep"):
+    for name in ("affinity_assign", "nms_keep", "bn_act"):
         k = rec["kernels"].get(name)
         assert (k is not None and k["launches"] > 0 and k["calls"] > 0
                 and len(k["bytes"]) == k["calls"] and min(k["bytes"]) > 0), (name, k)
+    assert rec["kernels"]["bn_act"]["launches"] == rec["kernels"]["bn_act"]["calls"] == 181 + 26
     assert all(rec[key] is not None for key in ("model_flops", "mfu", "bound_ms", "busy_ms"))
 
 

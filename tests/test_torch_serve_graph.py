@@ -29,7 +29,15 @@ request opens three ``graph:replay`` spans and no ``sync:*`` span, launches
 K1 once and the NMS kernel only inside its graph; the d3-serve cell's
 Predictor at b1 and b8 launches K1 once a request, the NMS kernel from the
 host once an eager request and once a capture and on the card once a
-replayed request (a profiler window), and K1 there equals its CPU twin.
+replayed request (a profiler window), and K1 there equals its CPU twin;
+its b1 requests launch the batch-norm kernel (``kernels/bn_act.py``) once
+a batch norm and gate from the host in the eager request and in the
+capture and on the card once a replayed request, and replay the heads and
+detections of a Predictor whose frozen batch norms run the composition, bit
+for bit. The traced replay, and the FLOP count after a capture, are held
+against an eager request whose batch norms already hold their
+coefficients, which a replay never forms; after a batch norm's weight
+changes in place, one eager request brings the captured graphs up to date.
 """
 
 import collections
@@ -45,8 +53,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark.spans import BLOCKS
 from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig
+from instance_segmentation_torch.models.layers import BatchNorm
 from instance_segmentation_torch import serve
-from instance_segmentation_torch.kernels import affinity, nms
+from instance_segmentation_torch.kernels import affinity, bn_act, nms
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig, forward_and_decode
 from instance_segmentation_torch.parallel import multihost, spatial
@@ -424,6 +433,8 @@ def test_flop_count_after_capture_equals_the_eager_one(cuda_device):
     from benchmark.counts import flops
     pred = _predictor(CARD_CASES["d3-bf16"][0], cuda_device, CARD_CASES["d3-bf16"][1])
     frames = _frames(hw=CARD_CASES["d3-bf16"][1], seed=8)
+    with torch.inference_mode():      # the batch norms' coefficients, kept before the count
+        EfficientSeg.forward(pred.model, torch.as_tensor(frames, device=cuda_device))
     _, eager_ops = flops.count(lambda: pred.predict(frames))
     pred.predict(frames)
     pred.predict(frames)
@@ -433,6 +444,30 @@ def test_flop_count_after_capture_equals_the_eager_one(cuda_device):
     assert flops.total_flops(eager_ops) > 0
     assert flops.total_flops(after_ops) == flops.total_flops(eager_ops)
     assert [op.name for op in after_ops] == [op.name for op in eager_ops]
+
+
+@pytest.mark.cuda
+def test_an_eager_request_after_a_weight_change_brings_the_graphs_up_to_date(cuda_device):
+    """The b1 graph, captured before a batch norm's weight changes in place,
+    replays the new weights' heads once a b8 request has run eagerly: the
+    kept coefficients it reads are rewritten where they lie."""
+    pred = _predictor(device=cuda_device)
+    heads = _Heads(pred.model)
+    one, eight = _frames(1, seed=21), _frames(8, seed=22)
+    for _ in range(3):
+        pred.predict(one)                                   # eager, capture, replay
+    norm = next(m for m in pred.model.modules() if isinstance(m, BatchNorm))
+    with torch.no_grad():
+        norm.weight.mul_(1.5)
+    pred.predict(eight)
+    pred.predict(one)
+    torch.cuda.synchronize()
+    key = ((1, H, W, 3), torch.uint8, torch.device(cuda_device.type, torch.cuda.current_device()))
+    assert pred.model._graphs[key] is not None
+    with torch.inference_mode():
+        want = EfficientSeg.forward(pred.model, torch.as_tensor(one, device=cuda_device))
+    assert _all_identical(heads.calls[-1], want)
+    assert not _all_identical(heads.calls[-1], heads.calls[0])
 
 
 @pytest.mark.cuda
@@ -453,6 +488,8 @@ def test_a_traced_replay_shows_its_span_and_kernels(cuda_device):
     def request():
         pred.predict(frames)
         return 1
+    with torch.inference_mode():      # the batch norms' coefficients, formed once, not replayed
+        EfficientSeg.forward(pred.model, torch.as_tensor(frames, device=cuda_device))
     eager = trace.traced_segment(request, cuda_device)
     request()                                   # the capture
     replay = trace.traced_segment(request, cuda_device)
@@ -560,3 +597,37 @@ def test_d3_requests_launch_k1_once_and_the_nms_kernel_once_in_the_graph(cuda_de
         assert _device_launches(lambda: pred.predict(frames[:b]), "nms_kernel") == 1.0, b
     cmp = torch_cases.against_cpu_twin(*affinity.affinity_assign(*served), served)
     assert cmp["bad"] == 0 and cmp["best_ok"], cmp
+
+
+@pytest.mark.cuda
+def test_d3_replayed_request_launches_bn_act_once_a_norm_and_gate_as_the_composition(
+        cuda_device, monkeypatch):
+    """The d3-serve cell's Predictor at b1: every batch norm and gate of the
+    forward launches the BN kernel from the host in the eager request and in
+    the capture, and on the card once a replayed request (a profiler window,
+    no host launch); the replayed heads and detections equal those of a
+    Predictor on the same weights whose frozen batch norms run the
+    composition (``bn_act.bn_act`` patched to its twin)."""
+    cfg, hw = CARD_CASES["d3-bf16"]
+    applications = len(torch_cases.bn_calls(cfg, hw))
+    frames = _frames(hw=hw, seed=20)
+
+    def served(pred):
+        heads = _Heads(pred.model)
+        dets = [pred.predict(frames) for _ in range(3)]     # eager, capture, replay
+        torch.cuda.synchronize()
+        return heads.calls[-1], dets[-1], pred
+    pred = _predictor(cfg, cuda_device, hw)
+    before = bn_act.launches
+    pred.predict(frames)
+    assert bn_act.launches - before == applications == 181 + 26
+    pred.predict(frames)
+    assert bn_act.launches - before == 2 * applications
+    assert _device_launches(lambda: pred.predict(frames), "bn_act_kernel") == applications
+    assert bn_act.launches - before == 2 * applications
+    heads, dets, _ = served(pred)
+    monkeypatch.setattr(bn_act, "bn_act", bn_act.bn_act_plain)
+    plain_heads, plain_dets, plain = served(_predictor(cfg, cuda_device, hw))
+    assert _device_launches(lambda: plain.predict(frames), "bn_act_kernel") == 0
+    assert int(dets.obj_valid.sum()) > 0
+    assert _all_identical(heads, plain_heads) and _all_identical(dets, plain_dets)

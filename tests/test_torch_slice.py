@@ -143,7 +143,8 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
 
 
 CARD_FILES = ("test_torch_affinity", "test_torch_nms", "test_torch_losses", "test_torch_minr2",
-              "test_torch_quant", "test_torch_serve_graph", "test_torch_on_card")
+              "test_torch_quant", "test_torch_serve_graph", "test_torch_on_card",
+              "test_torch_bn_act")
 
 
 @pytest.mark.parametrize("name", CARD_FILES)

@@ -8,6 +8,8 @@ the card files import them on the machine with the card, which has no JAX
   grouping inputs at decode shapes and the comparison with its CPU twin;
 - ``nms_inputs``: the NMS kernel's inputs on a serving-like set;
 - ``yaml_text``: a config written as YAML without PyYAML;
+- ``SERVING_CONFIGS`` / ``bn_calls``: the serving cells' models and the
+  shapes their eval forward hands the batch-norm kernel;
 - the shapes of the serving decode's grouping and of the train cells.
 """
 
@@ -15,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from instance_segmentation_torch.kernels import affinity
-from instance_segmentation_torch.models import generate_anchors
+from instance_segmentation_torch.kernels import affinity, bn_act
+from instance_segmentation_torch.models import EfficientSeg, EfficientSegConfig, generate_anchors
 from instance_segmentation_torch.ops import decode
 from instance_segmentation_torch.ops.decode import DecodeConfig
 
@@ -230,3 +232,37 @@ def yaml_text(tree: dict, indent: str = "") -> str:
         else:
             out += f"{indent}{k}: {scalar(v)}".rstrip() + "\n"
     return out
+
+
+# the serving cells' models at b1 (benchmark/configs/): (config, input H x W)
+SERVING_CONFIGS = {
+    "d3": (EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16),
+           (512, 1024)),
+    "v2l": (EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16,
+                               backbone="efficientnetv2-l"), (512, 1024)),
+    "d7x": (EfficientSegConfig(num_classes=80, compound_coef=8, compute_dtype=torch.bfloat16),
+            (1536, 1536)),
+}
+
+
+def bn_calls(cfg: EfficientSegConfig, hw, batch: int = 1) -> list:
+    """Every application of a frozen batch norm or gate in the eval forward
+    of ``cfg`` on [batch, H, W, 3] frames, in order, as (x's shape, scale
+    per image, with a shift, act): the forward run on the meta device
+    (shapes, no data), each ``bn_act.bn_act`` call recorded."""
+    calls = []
+    op = bn_act.bn_act
+
+    def record(x, scale, shift=None, act="none"):
+        calls.append((tuple(x.shape), scale.dim() == 2, shift is not None, act))
+        return op(x, scale, shift, act)
+    with torch.device("meta"):
+        model = EfficientSeg(cfg)
+    frames = torch.empty((batch, *hw, 3), dtype=torch.uint8, device="meta")
+    bn_act.bn_act = record
+    try:
+        with torch.no_grad():
+            model(frames)
+    finally:
+        bn_act.bn_act = op
+    return calls
