@@ -1,7 +1,7 @@
 // Eval batch norm and the squeeze-and-excitation gate as one pass over an
 // activation: y = act(round(round(x * s) + t)), every step rounded to the
 // working type as PyTorch's composition rounds it (models/layers.py,
-// BatchNorm: x * scale + shift, then F.silu or F.relu; MBConv's
+// BatchNorm: x * scale + shift, then F.silu, F.relu or F.gelu; MBConv's
 // sigmoid(s) * x), so the kernel gives the composition's bits.
 //
 // Replaces no TPU kernel: XLA fuses the JAX package's batch norm and
@@ -15,15 +15,17 @@
 // channels-last (NHWC in memory: the serving forward's layout); s [C] (batch
 // norm) or [B, C] (the gate: a scale per image and channel) and t [C] or
 // none, in x's type. act: 0 none, 1 SiLU (x / (1 + expf(-x)) in float32,
-// PyTorch's formula), 2 ReLU (NaN kept, else fmaxf(x, 0), as clamp_min).
+// PyTorch's formula), 2 ReLU (NaN kept, else fmaxf(x, 0), as clamp_min),
+// 3 GELU, the erf form (x * 0.5 * (1 + erff(x * M_SQRT1_2)) in float32,
+// left to right, as PyTorch's GeluCUDAKernelImpl writes it).
 // Products and sums are formed in float32 from the typed operands and
 // rounded to the type after each (__fmul_rn and __fadd_rn: no multiply-add
 // is contracted across a rounding), as PyTorch's CUDA functors compute in
 // float32 and store the type.
 //
 // What bounds it on the card: the bytes, 2 x numel x the type's size, at
-// 3.35 TB/s; its work is a few operations an element (SiLU's expf and
-// division the most). The design: each thread takes 16 bytes at a time
+// 3.35 TB/s; its work is a few operations an element (SiLU's expf and division,
+// GELU's erff, the most). The design: each thread takes 16 bytes at a time
 // (8 bfloat16 values) with one load and one store, in a grid-stride loop of
 // one wave of blocks. In channels-last with C a multiple of 8 the 8 values
 // are 8 channels of one pixel, and their coefficients are one 16-byte load
@@ -39,7 +41,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kNone = 0, kSilu = 1, kRelu = 2;
+constexpr int kNone = 0, kSilu = 1, kRelu = 2, kGelu = 3;
+constexpr float kSqrtHalf = 0.70710678118654752440f;   // M_SQRT1_2 in float32
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -65,6 +68,8 @@ __device__ __forceinline__ T apply(T x, T s, T t) {
   if (SHIFT) y = round_to<T>(__fadd_rn(y, widen(t)));
   if (ACT == kSilu) y = round_to<T>(y / (1.0f + expf(-y)));
   if (ACT == kRelu) y = isnan(y) ? y : fmaxf(y, 0.0f);
+  if (ACT == kGelu)
+    y = __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, erff(__fmul_rn(y, kSqrtHalf))));
   return narrow<T>(y);
 }
 
@@ -147,6 +152,8 @@ int launch_typed(const void* x, const void* scale, const void* shift, void* y, u
     case kSilu: return launch<T, kSilu, true>(x, scale, shift, y, n, C, HW, s_image,
                                               channels_last, packed, stream);
     case kRelu: return launch<T, kRelu, true>(x, scale, shift, y, n, C, HW, s_image,
+                                              channels_last, packed, stream);
+    case kGelu: return launch<T, kGelu, true>(x, scale, shift, y, n, C, HW, s_image,
                                               channels_last, packed, stream);
     default: return (int)cudaErrorInvalidValue;
   }

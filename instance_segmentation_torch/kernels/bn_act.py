@@ -6,13 +6,14 @@ Replaces no TPU kernel: XLA fuses the JAX package's batch norm and
 activation. ``x`` is [B, C, H, W] (float32, bfloat16 or float16); ``scale``
 is [C] (batch norm) or [B, C] (the gate: a scale per image and channel),
 ``shift`` [C] or None (the gate), both in ``x``'s dtype and contiguous;
-``act`` is "none", "silu" or "relu" (the gate takes "none").
+``act`` is "none", "silu", "relu" or "gelu" (the erf form; the gate takes
+"none").
 
 ``bn_act`` runs the op ``iseg::bn_act``: on CUDA tensors the kernel, on the
 current stream (no host read, so a CUDA graph holds it), which takes ``x``
 contiguous or channels-last with fewer than 2**31 elements and raises on
 any other; on CPU tensors its twin ``bn_act_plain``, the composition
-``x * scale + shift`` followed by ``F.silu`` or ``F.relu``; on the meta
+``x * scale + shift`` followed by ``F.silu``, ``F.relu`` or ``F.gelu``; on the meta
 device and under ``torch.export`` its fake, an output shaped as ``x``.
 ``launches`` counts kernel launches.
 """
@@ -29,9 +30,9 @@ import torch.nn.functional as F
 from instance_segmentation_torch.kernels import build
 
 launches = 0
-ACTS = {"none": 0, "silu": 1, "relu": 2}
+ACTS = {"none": 0, "silu": 1, "relu": 2, "gelu": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ACTIVATIONS = {"none": lambda y: y, "silu": F.silu, "relu": F.relu}
+_ACTIVATIONS = {"none": lambda y: y, "silu": F.silu, "relu": F.relu, "gelu": F.gelu}
 
 
 def bn_act_plain(x: torch.Tensor, scale: torch.Tensor, shift: Optional[torch.Tensor] = None,

@@ -4,8 +4,9 @@ heads, plus the U-Net kp/ae/tan decoder over [input, P1..P5].
 
 ``cfg.compound_coef`` sets the BiFPN, the heads and their anchors, and by
 default the backbone (EfficientNet-B``BACKBONE_COEF[coef]``);
-``cfg.backbone`` names another (``models/efficientnet.BACKBONES``: the
-B-series or EfficientNetV2-S/M/L), whose P3..P5 the BiFPN then takes.
+``cfg.backbone`` names another (``BACKBONES``: the B-series or
+EfficientNetV2-S/M/L of ``models/efficientnet.py``, or MaxViT-B of
+``models/maxvit.py``), whose P3..P5 the BiFPN then takes.
 
 Counterpart of ``instance_segmentation_tpu/models/efficientseg.py`` with the
 standard layout (``apply(train=..., packed_heads=False)``, no space-to-depth).
@@ -36,7 +37,8 @@ the forward (the backbone generator is rewound for it), so a step with
 ``cfg.quant == "int8"`` (reference ``quant``) runs the MBConv expand and
 project convs, the fused blocks' 1x1 project convs and the U-Net's 3x3
 convs through the int8 path outside
-training (``layers.int8_conv2d``), with the float model's parameters.
+training (``layers.int8_conv2d``), with the float model's parameters; a
+MaxViT backbone has no int8 path, and the config raises.
 
 Under a spatial mesh (``parallel/spatial.sharded(mesh)``, S > 1 spatial
 ranks) the forward takes this rank's W slab of the frames
@@ -46,23 +48,23 @@ group), P3..P5 are gathered (``pin_data_sharding``) and the BiFPN and the
 box heads run whole on every rank, and kp/ae/tan are gathered along W. It
 returns the five outputs of the whole frames, in the layouts above, on
 every rank of the group. That is the JAX package's W-sharded eval forward;
-training, ``remat`` and ``quant`` raise under it.
+training, ``remat``, ``quant`` and a MaxViT backbone (whose grid attention
+spans the whole map) raise under it.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from instance_segmentation_torch.models import efficientnet, maxvit
 from instance_segmentation_torch.models.bifpn import BiFPN
-from instance_segmentation_torch.models.efficientnet import (
-    EfficientNetFeatures, backbone_name, feature_channels,
-)
+from instance_segmentation_torch.models.efficientnet import EfficientNetFeatures
 from instance_segmentation_torch.models.heads import Classifier, Regressor
 from instance_segmentation_torch.models.layers import (
     Conv2d, Conv2dSame, cast_convs, pin_data_sharding,
@@ -81,6 +83,15 @@ INPUT_SIZES = [512, 640, 768, 896, 1024, 1280, 1280, 1536, 1536]
 
 DEFAULT_MEAN = (0.485, 0.456, 0.406)
 DEFAULT_STD = (0.229, 0.224, 0.225)
+
+BACKBONES = efficientnet.BACKBONES + maxvit.BACKBONES
+
+
+def feature_channels(backbone: str) -> List[int]:
+    """Channels of the backbone's [P1..P5]."""
+    if backbone in maxvit.TABLES:
+        return maxvit.feature_channels(backbone)
+    return efficientnet.feature_channels(backbone)
 
 
 @dataclass(frozen=True)
@@ -102,8 +113,11 @@ class EfficientSegConfig:
             raise ValueError(f"compound_coef {self.compound_coef}: 0..8")
         if self.quant not in ("none", "int8"):
             raise ValueError(f"quant {self.quant!r}: 'none' or 'int8'")
-        if self.backbone is not None:
-            backbone_name(self.backbone)
+        if self.backbone is not None and self.backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {self.backbone!r}: one of {', '.join(BACKBONES)}")
+        if self.quant == "int8" and self.backbone in maxvit.TABLES:
+            raise ValueError(f"{self.backbone} has no int8 path: its attention and MLP layers "
+                             "have no quantized form")
 
     @property
     def backbone_name(self) -> str:
@@ -172,8 +186,10 @@ class EfficientSeg(nn.Module):
         fpn_ch = FPN_FILTERS[coef]
         levels = PYRAMID_LEVELS[coef]
         quant = cfg.quant == "int8"
-        self.backbone_net = nn.ModuleDict(
-            {"model": EfficientNetFeatures(cfg.backbone_name, cfg.drop_connect_rate, quant)})
+        name = cfg.backbone_name
+        self.backbone_net = nn.ModuleDict({"model": (
+            maxvit.MaxViTFeatures(name, cfg.drop_connect_rate) if name in maxvit.TABLES
+            else EfficientNetFeatures(name, cfg.drop_connect_rate, quant))})
         self.bifpn = BiFPN(fpn_ch, chans[2:5], FPN_REPEATS[coef], attention=coef < 6,
                            use_p8=coef > 7)
         self.regressor = Regressor(fpn_ch, cfg.num_anchors, BOX_CLASS_REPEATS[coef],

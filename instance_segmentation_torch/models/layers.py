@@ -1,4 +1,5 @@
-"""Shared layers: TF-SAME convs, batch norm, separable conv, drop-connect (NCHW).
+"""Shared layers: TF-SAME convs, batch norm, separable conv, drop-connect (NCHW),
+and the transformer's linear layer and layer norm (over the last axis).
 
 Counterpart of ``instance_segmentation_tpu/models/layers.py``. The reference
 gets TF-SAME padding from XLA's ``padding="SAME"``; torch's ``padding="same"``
@@ -11,7 +12,10 @@ dtype already (``cast_convs``), so the cast is free; training holds float32
 master weights, as flax does (``param_dtype=f32``, ``dtype=bf16``), and the
 gradient flows back through the cast. Batch-norm parameters and statistics
 stay float32, and the per-channel ``scale``/``shift`` are formed in float32
-and cast to the activation dtype before they are applied. A frozen module
+and cast to the activation dtype before they are applied. ``Linear`` follows
+the convs' policy (``cast_convs`` holds it in the compute dtype too);
+``LayerNorm`` keeps its weight and bias in float32, as batch norm does, and
+casts them to the activation dtype per call. A frozen module
 (``frozen``: eval with grad disabled) applies them, with the activation that
 follows and the squeeze-and-excitation gate, through the op
 ``kernels/bn_act.bn_act``: one kernel on a CUDA tensor, the same
@@ -298,7 +302,7 @@ class BatchNorm(nn.Module):
     running statistics. ``torch.nn.SyncBatchNorm`` keeps the conventions of
     ``BatchNorm2d`` and is not used either.
 
-    ``act`` ("none", "silu", "relu") is the activation applied after the
+    ``act`` ("none", "silu", "relu", "gelu") is the activation applied after the
     norm. Frozen (``frozen``: eval with grad disabled), the module applies
     it with ``bn_act.bn_act`` and keeps its coefficients, one pair for each
     activation dtype and device. It forms them again only when the storage
@@ -422,10 +426,30 @@ def drop_connect(x: torch.Tensor, rate: float,
     return (x / keep) * mask
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input dtype per
+    call, as a conv's are."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis (eps 1e-5) whose float32 weight and
+    bias are cast to the input dtype per call; ``F.layer_norm`` forms the
+    statistics in float32 and rounds its output to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> None:
-    """Hold every conv / transposed-conv weight and bias in ``dtype``;
-    batch norm, fusion weights and the int8 path's convs (quantized from
-    float32, as the reference's) stay float32."""
+    """Hold every conv / transposed-conv / linear weight and bias in
+    ``dtype``; batch and layer norm, fusion weights, relative-position bias
+    tables and the int8 path's convs (quantized from float32, as the
+    reference's) stay float32."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and not getattr(m, "quant", False):
+        if (isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))
+                and not getattr(m, "quant", False)):
             m.to(dtype)

@@ -12,7 +12,16 @@ port-trained model back into the JAX package. Layouts (flax -> torch):
     both spatial axes (flax computes a fractionally strided correlation,
     torch a true transposed convolution);
   * batch norm scale/bias -> weight/bias, batch_stats mean/var ->
-    running_mean/running_var.
+    running_mean/running_var;
+  * dense kernels [in, out] -> linear weights [out, in]; layer norm
+    scale/bias -> weight/bias; a relative-position bias table
+    ``rel_bias`` [heads, 2P - 1, 2P - 1] as it is.
+
+A MaxViT backbone (``models/maxvit.py``, which the JAX package does not
+have) takes the names of the same rules: ``backbone/stem_conv2``, and in
+block N ``pre_norm``, the MBConv's convs and norms as EfficientNet's,
+``shortcut_conv``, and ``{block,grid}_{attn,mlp}`` with ``norm``, ``qkv``,
+``proj``, ``fc1``, ``fc2`` and the attention's ``rel_bias``.
 """
 
 from __future__ import annotations
@@ -27,11 +36,17 @@ from torch import nn
 
 from instance_segmentation_torch.models.bifpn import BiFPNCell
 from instance_segmentation_torch.models.layers import BatchNorm
+from instance_segmentation_torch.models.maxvit import RelativeAttention
 
 # (module path pattern, flax module path) — first full match wins.
 _MODULE_RULES = [
     (r"backbone_net\.model\._conv_stem\.conv", r"backbone/stem_conv/Conv_0"),
     (r"backbone_net\.model\._bn0", r"backbone/stem_bn/BatchNorm_0"),
+    (r"backbone_net\.model\._conv_stem2\.conv", r"backbone/stem_conv2/Conv_0"),
+    (r"backbone_net\.model\._blocks\.(\d+)\._pre_norm", r"backbone/block\1/pre_norm/BatchNorm_0"),
+    (r"backbone_net\.model\._blocks\.(\d+)\.((?:block|grid)_(?:attn|mlp))\.(\w+)",
+     r"backbone/block\1/\2/\3"),
+    (r"backbone_net\.model\._blocks\.(\d+)\.((?:block|grid)_attn)", r"backbone/block\1/\2"),
     (r"backbone_net\.model\._blocks\.(\d+)\._se_(reduce|expand)\.conv",
      r"backbone/block\1/se/\2/Conv_0"),
     (r"backbone_net\.model\._blocks\.(\d+)\._(\w+_conv)\.conv",
@@ -81,12 +96,18 @@ def deconv_kernel_to_flax(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))[::-1, ::-1])
 
 
+def dense_kernel_transpose(k: np.ndarray) -> np.ndarray:
+    """flax Dense (in, out) <-> torch Linear (out, in): its own inverse."""
+    return np.ascontiguousarray(k.T)
+
+
 def _identity(a: np.ndarray) -> np.ndarray:
     return a
 
 
 _INVERSE = {conv_kernel_from_flax: conv_kernel_to_flax,
-            deconv_kernel_from_flax: deconv_kernel_to_flax, _identity: _identity}
+            deconv_kernel_from_flax: deconv_kernel_to_flax,
+            dense_kernel_transpose: dense_kernel_transpose, _identity: _identity}
 
 
 def flax_leaf(key: str, module: nn.Module
@@ -104,8 +125,13 @@ def flax_leaf(key: str, module: nn.Module
     if isinstance(module, BatchNorm):
         coll, name = _BN_LEAVES[leaf]
         return coll, path + (name,), _identity
-    if isinstance(module, BiFPNCell):
+    if isinstance(module, (BiFPNCell, RelativeAttention)):
         return "params", path + (leaf,), _identity
+    if isinstance(module, nn.LayerNorm):
+        return "params", path + ({"weight": "scale"}.get(leaf, leaf),), _identity
+    if isinstance(module, nn.Linear):
+        return "params", path + ({"weight": "kernel"}.get(leaf, leaf),), (
+            dense_kernel_transpose if leaf == "weight" else _identity)
     if isinstance(module, nn.ConvTranspose2d):
         return "params", path + ({"weight": "kernel"}.get(leaf, leaf),), (
             deconv_kernel_from_flax if leaf == "weight" else _identity)
@@ -189,12 +215,22 @@ def export_flax_variables(model: nn.Module) -> Dict[str, Dict]:
 
 @torch.no_grad()
 def init_random(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded untrained weights: conv kernels ~ N(0, 1/fan_in) (the variance
-    of the reference's lecun-normal init), zero biases, identity batch norm,
-    unit fusion weights. ``generator`` is a CPU generator; values are drawn
-    on the CPU in float32, so one seed gives the same model on any device."""
+    """Seeded untrained weights: conv and linear kernels ~ N(0, 1/fan_in) (the
+    variance of the reference's lecun-normal init), zero biases, identity
+    batch and layer norm, unit fusion weights, relative-position bias tables
+    ~ N(0, 1). ``generator`` is a CPU generator; values are drawn on the CPU
+    in float32, so one seed gives the same model on any device."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, nn.Linear):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           / math.sqrt(m.in_features))
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, RelativeAttention):
+            m.rel_bias.copy_(torch.randn(m.rel_bias.shape, generator=generator))
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             kh, kw = w.shape[2], w.shape[3]
             fan_in = (w.shape[0] if isinstance(m, nn.ConvTranspose2d)

@@ -7,11 +7,12 @@ checks and ``torch.library.opcheck`` of the op.
 
 On a CUDA card only (marked ``cuda``): the kernel equal bit for bit to the
 composition it replaces (``bn_act_plain``: ``x * scale + shift``, then
-``F.silu`` or ``F.relu``; the gate ``sigmoid(s) * x``), compared as integers
+``F.silu``, ``F.relu`` or ``F.gelu``; the gate ``sigmoid(s) * x``), compared as integers
 so that NaN, infinities and signed zeros count, at every batch-norm and gate
 shape of the D3, V2-L and D7x serving forwards at b1, contiguous and
 channels-last, in bfloat16 and float32, each batch norm with no activation,
-SiLU and ReLU; and at ragged and unaligned shapes in every dtype:
+SiLU, ReLU and GELU (MaxViT-B's serving forward too); and at ragged and
+unaligned shapes in every dtype:
 
     python -m pytest --noconftest -m cuda tests/test_torch_bn_act.py
 """
@@ -33,6 +34,7 @@ from torch_cases import cuda_device  # noqa: F401 (a fixture)
 torch.set_num_threads(2)
 INT_VIEW = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}
 # the values a pass must carry through as the composition does
+ACTS = ("none", "silu", "relu", "gelu")
 SPECIAL = (float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 1e-40, -1e-40, 3e38, -3e38,
            -88.5, 88.5, -20.0, 1e-3)
 
@@ -102,7 +104,7 @@ def test_bn_act_checks_its_inputs(case):
     elif case == "shift-shape":
         shift = torch.zeros(2, 8)
     elif case == "act":
-        act = "gelu"
+        act = "tanh"
     elif case == "gate-act":
         scale, shift, act = torch.ones(2, 8), None, "silu"
     else:
@@ -111,7 +113,7 @@ def test_bn_act_checks_its_inputs(case):
         bn_act.bn_act(x, scale, shift, act)
 
 
-@pytest.mark.parametrize("case", ["bn-silu-nchw", "bn-relu-nhwc", "gate-nhwc"])
+@pytest.mark.parametrize("case", ["bn-silu-nchw", "bn-relu-nhwc", "bn-gelu-nhwc", "gate-nhwc"])
 def test_bn_act_custom_op_passes_opcheck(case):
     g = torch.Generator().manual_seed(3)
     x = torch.randn(2, 8, 3, 4, generator=g).to(torch.bfloat16)
@@ -139,7 +141,7 @@ def test_kernel_equals_the_composition_at_every_serving_shape(cuda_device, confi
             for channels_last in (False, True):
                 x, scale, shift = _inputs(shape, dtype, cuda_device, channels_last, per_image,
                                           with_shift, seed)
-                for act in (("none", "silu", "relu") if with_shift else ("none",)):
+                for act in (ACTS if with_shift else ("none",)):
                     _compare(x, scale, shift, act)
         torch.cuda.synchronize()
 
@@ -159,7 +161,7 @@ def test_kernel_equals_the_composition_at_ragged_shapes(cuda_device, shape, chan
     for per_image, with_shift in ((False, True), (True, False)):
         x, scale, shift = _inputs(shape, dtype, cuda_device, channels_last, per_image,
                                   with_shift, math.prod(shape))
-        for act in (("none", "silu", "relu") if with_shift else ("none",)):
+        for act in (ACTS if with_shift else ("none",)):
             _compare(x, scale, shift, act)
 
 
@@ -178,7 +180,7 @@ def test_kernel_reads_unaligned_and_offset_tensors(cuda_device, dtype):
         s, t = tables[1:17], tables[18:34]
         s.copy_(scale)
         t.copy_(shift)
-        for act in ("none", "silu", "relu"):
+        for act in ACTS:
             _compare(shifted, s, t, act)
 
 
@@ -194,3 +196,16 @@ def test_silu_of_the_kernel_is_pytorchs_on_every_bfloat16(cuda_device):
                                                                    + zero[:, None, None]))
     assert _identical(bn_act.bn_act(x, one, zero, "relu"), F.relu(x * one[:, None, None]
                                                                    + zero[:, None, None]))
+
+
+@pytest.mark.cuda
+def test_gelu_of_the_kernel_is_pytorchs_on_every_bfloat16(cuda_device):
+    """Scale 1 and shift -0 leave x as it is, so GELU meets every one of the
+    65,536 bfloat16 bit patterns, channels-last and contiguous."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=cuda_device)
+    x = x.to(torch.int16).view(torch.bfloat16).reshape(1, 8, 64, 128)
+    one = torch.ones(8, dtype=torch.bfloat16, device=cuda_device)
+    zero = torch.full((8,), -0.0, dtype=torch.bfloat16, device=cuda_device)
+    for layout in (x, x.contiguous(memory_format=torch.channels_last)):
+        assert _identical(bn_act.bn_act(layout, one, zero, "gelu"),
+                          F.gelu(layout * one[:, None, None] + zero[:, None, None]))

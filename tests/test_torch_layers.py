@@ -152,7 +152,7 @@ def test_separable_conv_matches_flax(norm, activation):
 # fused activation, the kept coefficients and the route to the op
 # ---------------------------------------------------------------------------
 
-ACTIVATIONS = {"none": lambda y: y, "silu": F.silu, "relu": F.relu}
+ACTIVATIONS = {"none": lambda y: y, "silu": F.silu, "relu": F.relu, "gelu": F.gelu}
 
 
 def _bn(c=8, eps=tl.BN_EPS_DET, seed=7):
@@ -178,7 +178,7 @@ def _composition(bn, x, mean, var):
 
 @pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "nhwc"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("act", ["none", "silu", "relu", "gate"])
+@pytest.mark.parametrize("act", ["none", "silu", "relu", "gelu", "gate"])
 def test_bn_act_cpu_twin_is_the_composition(act, dtype, channels_last):
     x = _x(dtype, channels_last)
     rng = np.random.default_rng(9)
@@ -195,7 +195,7 @@ def test_bn_act_cpu_twin_is_the_composition(act, dtype, channels_last):
 
 
 @pytest.mark.parametrize("mode", ["frozen", "eval_grad", "training"])
-@pytest.mark.parametrize("act", ["none", "silu", "relu"])
+@pytest.mark.parametrize("act", ["none", "silu", "relu", "gelu"])
 def test_batchnorm_with_act_equals_the_activation_after_it(act, mode):
     x = _x(torch.bfloat16)
     fused, plain = _bn(), _bn()
@@ -207,6 +207,25 @@ def test_batchnorm_with_act_equals_the_activation_after_it(act, mode):
     assert torch.equal(got, want)
     assert torch.equal(fused.running_mean, plain.running_mean)
     assert torch.equal(fused.running_var, plain.running_var)
+
+
+def test_linear_and_layer_norm_follow_the_dtype_policy():
+    """``cast_convs`` holds a linear layer in the compute dtype and leaves a
+    layer norm in float32; both cast to the input's dtype per call."""
+    g = torch.Generator().manual_seed(5)
+    net = torch.nn.Sequential(tl.LayerNorm(8), tl.Linear(8, 12))
+    for p in net.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=g))
+    tl.cast_convs(net, torch.bfloat16)
+    norm, linear = net
+    assert linear.weight.dtype == linear.bias.dtype == torch.bfloat16
+    assert norm.weight.dtype == norm.bias.dtype == torch.float32
+    x = torch.randn(2, 3, 8, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        y = net(x)
+    want = F.linear(F.layer_norm(x, (8,), norm.weight.to(x.dtype), norm.bias.to(x.dtype),
+                                 1e-5), linear.weight, linear.bias)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, want)
 
 
 def _load_state(bn):

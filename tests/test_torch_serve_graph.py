@@ -368,6 +368,9 @@ CARD_CASES = {
                                    quant="int8"), (H, W)),
     "d3-bf16": (EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16),
                 (512, 1024)),
+    "maxvitb-bf16": (EfficientSegConfig(num_classes=8, compound_coef=3,
+                                        compute_dtype=torch.bfloat16, backbone="maxvit-b"),
+                     (512, 1024)),
 }
 
 

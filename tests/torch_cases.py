@@ -242,6 +242,8 @@ SERVING_CONFIGS = {
                                backbone="efficientnetv2-l"), (512, 1024)),
     "d7x": (EfficientSegConfig(num_classes=80, compound_coef=8, compute_dtype=torch.bfloat16),
             (1536, 1536)),
+    "maxvitb": (EfficientSegConfig(num_classes=8, compound_coef=3, compute_dtype=torch.bfloat16,
+                                   backbone="maxvit-b"), (512, 1024)),
 }
 
 
